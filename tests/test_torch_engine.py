@@ -1,0 +1,192 @@
+"""The port's whole inference slice against the JAX engine on the tiny
+model graph: `engine.sample` with the candidate-batched and the sequential
+init-noise search (noise_iters=3, 4 CFG steps), both fed the JAX engine's
+own random draws. Compared: the candidates' scores, the chosen candidate,
+the final latent and the decoded image (fp32; tolerance 1e-3 relative and
+absolute: the initial latent is ~14.6·randn and CFG 5 amplifies the
+per-eval differences of ~1e-6 over 4 steps). Also the predictor,
+the builder's shipped-graph dict, and that the port never imports JAX or
+the JAX package."""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import yaml
+
+import torch_port_util as U
+from udifftext_tpu.builders import build_diffusion_engine
+from udifftext_tpu.diffusion import loss as JL
+from udifftext_tpu.diffusion import sampling as JS
+from udifftext_tpu.diffusion.schedules import append_dims
+from udifftext_tpu_torch.builders import TEXTDESIGN_SD_2, build_engine
+from udifftext_tpu_torch.predict import Predictor
+from udifftext_tpu_torch.utils import convert
+
+REPO = Path(__file__).resolve().parent.parent
+RTOL, ATOL = 1e-3, 1e-3
+K, STEPS, CFG = 3, 4, 5.0
+T = torch.from_numpy
+
+
+@pytest.fixture(scope="module")
+def engines():
+    cfg = U.tiny_model_cfg()
+    je = build_diffusion_engine(cfg, unet_dtype=jnp.float32).engine
+    params = U.engine_params(je, seed=11)
+    pe = U.load_port(build_engine(cfg, torch.float32).engine, convert.engine_from_jax(params))
+    return je, params, pe
+
+
+def _jax_draws(key, b):
+    """The JAX engine's draws for sample(key): the tiny graph conditions
+    through GeneralConditioner, whose LatentEncoder (embedder 2) samples the
+    posterior with split(rng_cond, 6)[4]; the search splits rng_noise."""
+    rng_cond, rng_noise = jax.random.split(key)
+    shape = (b, U.LAT, U.LAT, 4)
+    eps = jax.random.normal(jax.random.split(rng_cond, 6)[4], shape)
+    cands = jnp.stack([jax.random.normal(k, shape) for k in jax.random.split(rng_noise, K)])
+    return rng_cond, rng_noise, np.asarray(eps), np.asarray(cands)
+
+
+def _jax_scores(je, params, c, uc, batch, cands):
+    """Each candidate's summed min-local loss after the 2-step rollout, from
+    the JAX engine's own pieces (get_init_noise returns only the winner)."""
+    k, b = cands.shape[:2]
+    tile = lambda t: jnp.concatenate([t] * k, axis=0)  # noqa: E731
+    denoise = je.make_denoise_fn(params, jax.tree.map(tile, c), jax.tree.map(tile, uc), CFG,
+                                 capture_attn=True)
+    sigmas = jnp.asarray(je.discretization(2, do_append_zero=True))
+    x = JS.init_latent(jnp.asarray(cands).reshape((k * b,) + cands.shape[2:]), sigmas)
+    for i in range(2):
+        sigma = jnp.full((k * b,), sigmas[i])
+        denoised, aux = denoise(x, sigma)
+        loss = JL.min_local_loss(aux, tile(batch["mask"]), tile(batch["seg_mask"]),
+                                 jnp.asarray(je.loss_cfg.kernel), je.loss_cfg.min_attn_size)
+        x = x + append_dims(sigmas[i + 1] - sigma, x.ndim) * JS.to_d(x, sigma, denoised)
+    return np.asarray(loss.reshape(k, b).sum(axis=1))
+
+
+@pytest.mark.parametrize("batched", [True, False], ids=["batched_search", "sequential_search"])
+def test_sample_matches_jax_engine(engines, batched):
+    je, params, pe = engines
+    b = 1 if batched else 2
+    nb = U.numpy_batch(b, seed=5)
+    jb = U.to_jax(nb)
+    key = jax.random.PRNGKey(21)
+    rng_cond, rng_noise, eps, cands = _jax_draws(key, b)
+
+    c, uc = je.conditionings(params, jb, rng=rng_cond)
+    want_scores = _jax_scores(je, params, c, uc, jb, cands)
+    want_x0 = je.get_init_noise(params, c, uc, jb, rng_noise, (b, U.LAT, U.LAT, 4), CFG, K,
+                                candidate_batched=batched)
+    want_z, _ = je.sample(params, jb, key, num_steps=STEPS, cfg_scale=CFG, noise_iters=K,
+                          noise_search_batched=batched, return_latents=True)
+    want_img = jnp.clip((je.decode_first_stage(params, want_z) + 1.0) / 2.0, 0.0, 1.0)
+
+    pb = U.to_torch(nb)
+    pc, puc = pe.conditionings(pb, T(eps))
+    for name in ("t_crossattn", "concat"):
+        U.assert_close(pc[name], c[name], 1e-5, 1e-5, f"c[{name}]")
+        U.assert_close(puc[name], uc[name], 1e-5, 1e-5, f"uc[{name}]")
+    with torch.no_grad():
+        x0, scores = pe.get_init_noise(pc, puc, pb, T(cands), CFG, candidate_batched=batched)
+    U.assert_close(scores, want_scores, RTOL, 1e-5, "candidate scores")
+    assert int(np.argmin(scores.numpy())) == int(np.argmin(want_scores))
+    assert np.array_equal(x0.numpy(), np.asarray(want_x0)), "chosen candidate"
+
+    kw = dict(num_steps=STEPS, cfg_scale=CFG, noise_iters=K, noise_search_batched=batched,
+              posterior_eps=T(eps), noise=T(cands))
+    z, aux = pe.sample(pb, return_latents=True, **kw)
+    U.assert_close(aux["noise_scores"], want_scores, RTOL, 1e-5, "sample's scores")
+    U.assert_close(z, want_z, RTOL, ATOL, "final latent")
+    img, _ = pe.sample(pb, **kw)
+    assert img.shape == (b, U.IMG, U.IMG, 3)
+    U.assert_close(img, want_img, RTOL, ATOL, "decoded image")
+
+
+def test_predictor_float_batch_and_search_choice(engines, monkeypatch):
+    _, _, pe = engines
+    nb = U.numpy_batch(2, seed=6)
+    nb["label"] = np.array(["abc", "abc"], dtype=object)  # host-only fields are skipped
+    gen = torch.Generator().manual_seed(0)
+    eps = torch.randn(2, U.LAT, U.LAT, 4, generator=gen)
+    noise = torch.randn(K, 2, U.LAT, U.LAT, 4, generator=gen)
+    pred = Predictor(pe, num_steps=2, cfg_scale=CFG, noise_iters=K, noise_search_batched=True,
+                     noise_search_max_rows=K * 2)
+    img, aux = pred(nb, posterior_eps=eps, noise=noise)
+    want, _ = pe.sample(U.to_torch({k: v for k, v in nb.items() if k != "label"}), num_steps=2,
+                        cfg_scale=CFG, noise_iters=K, posterior_eps=eps, noise=noise)
+    assert torch.equal(img, want)
+
+    seen = []
+    orig = pe.sample
+    monkeypatch.setattr(pe, "sample", lambda *a, **k: (seen.append(k["noise_search_batched"]),
+                                                       orig(*a, **k))[1])
+    pred(nb, posterior_eps=eps, noise=noise)
+    Predictor(pe, num_steps=1, noise_iters=K, noise_search_batched=True,
+              noise_search_max_rows=K * 2 - 1)(nb, posterior_eps=eps, noise=noise)
+    assert seen == [True, False]
+
+
+def test_unported_options_raise(engines):
+    _, _, pe = engines
+    nb = U.numpy_batch(1)
+    with pytest.raises(NotImplementedError, match="attend-and-excite"):
+        pe.sample(U.to_torch(nb), aae_enabled=True)
+    with pytest.raises(NotImplementedError, match="attend-and-excite"):
+        Predictor(pe, detailed=True)
+    with pytest.raises(NotImplementedError, match="uint8"):
+        Predictor(pe)({**nb, "image": (nb["image"] * 0).astype(np.uint8)})
+    cfg = U.tiny_model_cfg()
+    cfg["network_config"]["params"]["ctrl_channels"] = 3
+    with pytest.raises(NotImplementedError, match="ctrl"):
+        build_engine(cfg, torch.float32)
+    cfg = U.tiny_model_cfg()
+    cfg["conditioner_config"]["params"]["emb_models"].pop(1)
+    with pytest.raises(NotImplementedError, match="embedder graph"):
+        build_engine(cfg, torch.float32)
+
+
+def test_shipped_graph_dict_equals_yaml():
+    with open(REPO / "configs" / "test" / "textdesign_sd_2.yaml") as f:
+        assert yaml.safe_load(f)["model"]["params"] == TEXTDESIGN_SD_2
+
+
+_NO_JAX_SCRIPT = r"""
+import json, sys
+import numpy as np, torch
+import udifftext_tpu_torch
+from udifftext_tpu_torch import demo, predict
+from udifftext_tpu_torch.builders import build_engine, randomize_parameters
+from udifftext_tpu_torch.utils import convert
+bundle = build_engine(json.loads(sys.argv[1]), torch.float32)
+randomize_parameters(bundle.engine, 0)
+batch = demo.build_batch(np.zeros((40, 40, 3), np.uint8), np.full((40, 40), 255, np.uint8),
+                         "ab", 32, 32)
+for batched in (True, False):
+    img, _ = predict.Predictor(bundle.engine, num_steps=2, noise_iters=2,
+                               noise_search_batched=batched)(batch, torch.Generator().manual_seed(0))
+    assert img.shape == (1, 32, 32, 3) and bool(torch.isfinite(img).all())
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "udifftext_tpu"))
+print(json.dumps(bad))
+"""
+
+
+def test_port_never_imports_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    res = subprocess.run(
+        [sys.executable, "-c", _NO_JAX_SCRIPT, json.dumps(U.tiny_model_cfg())],
+        capture_output=True, text=True, env=env, cwd=str(REPO), timeout=300,
+    )
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == []

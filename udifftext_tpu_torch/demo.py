@@ -1,0 +1,94 @@
+"""Scene-text editing demo on the port, as a command-line one-shot:
+
+    python -m udifftext_tpu_torch.demo --image in.png --mask mask.png \
+        --text HELLO --out out.png [--steps N --scale S --seed K]
+
+Reads ./configs/demo.yaml (and the model graph it names) like the JAX
+build's demo.py, resizes image and mask to H×W, and runs the predictor with
+the candidate-batched init-noise search. Loading a checkpoint into the port
+is not ported yet: with no checkpoint file the weights are seeded random,
+as the JAX demo falls back to a fresh init; an existing checkpoint raises.
+Needs PyYAML and Pillow; runs on the GPU when there is one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+from typing import Dict
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .builders import build_engine, randomize_parameters
+from .charset import encode_labels
+from .predict import Predictor
+
+
+def _resize(x: np.ndarray, h: int, w: int) -> np.ndarray:
+    """Bilinear resize (H, W, C) without antialiasing, cv2.INTER_LINEAR's rule."""
+    t = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).permute(2, 0, 1)[None]
+    return F.interpolate(t, size=(h, w), mode="bilinear", align_corners=False)[0].permute(1, 2, 0).numpy()
+
+
+def build_batch(image: np.ndarray, mask: np.ndarray, text: str, H: int = 512, W: int = 512,
+                seq_len: int = 12) -> Dict[str, np.ndarray]:
+    """image (h, w, 3) uint8, mask (h, w) → the float batch of one sample:
+    image in [-1, 1], binary mask, masked = image·(1 − mask), seg_mask by
+    len(text)."""
+    image = _resize(image, H, W) / 127.5 - 1.0
+    mask = (_resize(mask[..., None], H, W) > 0.5).astype(np.float32)
+    seg_mask = np.zeros(seq_len, np.float32)
+    seg_mask[: len(text)] = 1.0
+    return {
+        "image": image[None], "mask": mask[None], "masked": (image * (1 - mask))[None],
+        "seg_mask": seg_mask[None], "label_ids": encode_labels([text], seq_len),
+    }
+
+
+def main(argv=None) -> None:
+    from PIL import Image
+
+    from udifftext_tpu.config import load_config
+
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--image", required=True)
+    p.add_argument("--mask", required=True)
+    p.add_argument("--text", required=True)
+    p.add_argument("--out", default="demo_out.png")
+    p.add_argument("--steps", type=int, default=None)
+    p.add_argument("--scale", type=float, default=None)
+    p.add_argument("--seed", type=int, default=0)
+    args = p.parse_args(argv)
+
+    cfgs = load_config("./configs/demo.yaml")
+    model_cfg = load_config(cfgs["model_cfg_path"])["model"]["params"]
+    device = "cuda" if torch.cuda.is_available() else "cpu"
+    bundle = build_engine(model_cfg, torch.bfloat16 if cfgs.get("bf16", True) else torch.float32,
+                          device)
+    ckpt = cfgs.get("load_ckpt_path")
+    if ckpt and os.path.exists(str(ckpt)):
+        raise NotImplementedError(f"loading {ckpt} into the port is not ported yet")
+    print(f"[demo] checkpoint {ckpt} not found — using seeded random weights (seed {args.seed})")
+    randomize_parameters(bundle.engine, args.seed)
+
+    scale = cfgs.get("scale", [5.0, 0.0])
+    scale = scale[0] if isinstance(scale, (list, tuple)) else scale
+    steps = args.steps if args.steps is not None else cfgs.get("steps", bundle.sampler.num_steps)
+    scale = args.scale if args.scale is not None else scale
+    predictor = Predictor(bundle.engine, num_steps=steps, cfg_scale=scale,
+                          noise_iters=int(cfgs.get("noise_iters", 10)),
+                          noise_search_batched=bool(cfgs.get("noise_search_batched", True)))
+    image = np.asarray(Image.open(args.image).convert("RGB"))
+    mask = np.asarray(Image.open(args.mask).convert("L"))
+    batch = build_batch(image, mask, args.text, cfgs.get("H", 512), cfgs.get("W", 512),
+                        cfgs.get("seq_len", 12))
+    gen = torch.Generator(device).manual_seed(args.seed)
+    images, _ = predictor(batch, gen)
+    Image.fromarray((images[0].float().cpu().numpy() * 255).astype(np.uint8)).save(args.out)
+    print(f"saved {args.out}")
+
+
+if __name__ == "__main__":
+    main()

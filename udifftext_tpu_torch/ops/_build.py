@@ -1,0 +1,98 @@
+"""Build the package's CUDA sources with nvcc and load them with ctypes.
+
+`csrc/*.cu` compile into one shared library with a plain C interface under
+`udifftext_tpu_torch/_build/`, named by a hash of the sources and flags, on
+the first call that needs a kernel. Nothing is built when a module is
+imported, so the package imports on machines without nvcc or a GPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Sequence
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+# dtype codes understood by the C entry points (csrc/common.cuh)
+DTYPE_CODES: Dict[torch.dtype, int] = {torch.float32: 0, torch.bfloat16: 1}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
+
+
+def library_path() -> Path:
+    """Where the library for the current sources lives (built or not)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libudifftext_kernels_{h.hexdigest()[:16]}.so"
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library; returns the handle.
+
+    The compiler's per-kernel resource report (`-Xptxas=-v`: registers,
+    shared memory, spills) is kept beside the library as `<name>.log`."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            so = library_path()
+            if not so.exists():
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+                cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                       *(str(p) for p in sorted(CSRC.glob("*.cu")))]
+                res = subprocess.run(cmd, capture_output=True, text=True)
+                if res.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr}"
+                    )
+                so.with_suffix(".log").write_text(res.stdout + res.stderr)
+                os.replace(tmp, so)
+            _lib = ctypes.CDLL(str(so))
+    return _lib
+
+
+def kernel_function(name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+    """A C entry point of the library with its argument types declared.
+    Every entry point returns the CUDA error code of its launch."""
+    fn = getattr(load_library(), name)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{name} failed: CUDA error {err}")
+
+
+def stream_handle(t: torch.Tensor) -> int:
+    """The cudaStream_t of PyTorch's current stream on `t`'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream

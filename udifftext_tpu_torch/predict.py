@@ -1,0 +1,82 @@
+"""Predictor for the demo and test flows (port of `udifftext_tpu/predict.py`).
+
+Holds the sampler settings, turns a batch's array fields into tensors on
+the engine's device, and runs `DiffusionEngine.sample`. The candidate-
+batched init-noise search is chosen per call: batched only while
+noise_iters·B stays within `noise_search_max_rows`, since the stacked
+candidates' UNet batch (and its captured maps) grows with it.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+# array fields DiffusionEngine.sample consumes; strings stay on the host
+ARRAY_KEYS = ("image", "masked", "mask", "seg", "seg_mask", "label_ids", "r_bbox")
+
+
+class Predictor:
+    def __init__(
+        self,
+        engine,
+        num_steps: int = 50,
+        cfg_scale: float = 5.0,
+        noise_iters: int = 10,
+        aae_enabled: bool = False,
+        detailed: bool = False,
+        encprop_interval: int = 0,
+        noise_search_batched: bool = False,
+        noise_search_max_rows: int = 128,
+    ):
+        if aae_enabled or detailed:
+            raise NotImplementedError(
+                "attend-and-excite (aae_enabled) and attention-map capture (detailed) "
+                "are not ported yet"
+            )
+        if encprop_interval > 1:
+            raise NotImplementedError("encoder-propagation sampling is not ported yet")
+        self.engine = engine
+        self.num_steps = int(num_steps)
+        self.cfg_scale = float(cfg_scale)
+        self.noise_iters = int(noise_iters)
+        self.noise_search_batched = bool(noise_search_batched)
+        self.noise_search_max_rows = int(noise_search_max_rows)
+
+    def array_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """The float batch's array fields as tensors on the engine's device."""
+        out = {}
+        dev = self.engine.device
+        for k in ARRAY_KEYS:
+            v = batch.get(k)
+            if v is None or (isinstance(v, np.ndarray) and v.dtype == object):
+                continue
+            t = torch.as_tensor(v)
+            if k == "image" and t.dtype == torch.uint8:
+                raise NotImplementedError(
+                    "the uint8 wire format (serving) is not ported yet: send float "
+                    "image/mask/masked arrays"
+                )
+            out[k] = t.to(dev)
+        if not out:
+            raise ValueError(f"batch carries none of the predictor's array keys "
+                             f"{ARRAY_KEYS} — got {sorted(batch)}")
+        return out
+
+    def __call__(
+        self,
+        batch: Dict[str, Any],
+        generator: Optional[torch.Generator] = None,
+        posterior_eps: Optional[torch.Tensor] = None,
+        noise: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        arr = self.array_batch(batch)
+        b = next(iter(arr.values())).shape[0]
+        batched = self.noise_search_batched and self.noise_iters * b <= self.noise_search_max_rows
+        return self.engine.sample(
+            arr, generator, num_steps=self.num_steps, cfg_scale=self.cfg_scale,
+            noise_iters=self.noise_iters, noise_search_batched=batched,
+            posterior_eps=posterior_eps, noise=noise,
+        )
