@@ -139,10 +139,8 @@ def test_predictor_float_batch_and_search_choice(engines, monkeypatch):
 def test_unported_options_raise(engines):
     _, _, pe = engines
     nb = U.numpy_batch(1)
-    with pytest.raises(NotImplementedError, match="attend-and-excite"):
-        pe.sample(U.to_torch(nb), aae_enabled=True)
-    with pytest.raises(NotImplementedError, match="attend-and-excite"):
-        Predictor(pe, detailed=True)
+    with pytest.raises(NotImplementedError, match="encoder-propagation"):
+        Predictor(pe, encprop_interval=2)
     with pytest.raises(NotImplementedError, match="uint8"):
         Predictor(pe)({**nb, "image": (nb["image"] * 0).astype(np.uint8)})
     cfg = U.tiny_model_cfg()
@@ -153,6 +151,10 @@ def test_unported_options_raise(engines):
     cfg["conditioner_config"]["params"]["emb_models"].pop(1)
     with pytest.raises(NotImplementedError, match="embedder graph"):
         build_engine(cfg, torch.float32)
+    cfg = U.tiny_model_cfg()
+    cfg["loss_fn_config"]["params"]["ocr_enabled"] = True
+    with pytest.raises(NotImplementedError, match="OCR"):
+        build_engine(cfg, torch.float32, train=True)
 
 
 def test_shipped_graph_dict_equals_yaml():
@@ -164,10 +166,11 @@ _NO_JAX_SCRIPT = r"""
 import json, sys
 import numpy as np, torch
 import udifftext_tpu_torch
-from udifftext_tpu_torch import demo, predict
+from udifftext_tpu_torch import demo, predict, train
 from udifftext_tpu_torch.builders import build_engine, randomize_parameters
-from udifftext_tpu_torch.utils import convert
-bundle = build_engine(json.loads(sys.argv[1]), torch.float32)
+from udifftext_tpu_torch.parallel import train as parallel_train
+from udifftext_tpu_torch.utils import convert, logger
+bundle = build_engine(json.loads(sys.argv[1]), torch.float32, train=True)
 randomize_parameters(bundle.engine, 0)
 batch = demo.build_batch(np.zeros((40, 40, 3), np.uint8), np.full((40, 40), 255, np.uint8),
                          "ab", 32, 32)
@@ -175,17 +178,26 @@ for batched in (True, False):
     img, _ = predict.Predictor(bundle.engine, num_steps=2, noise_iters=2,
                                noise_search_batched=batched)(batch, torch.Generator().manual_seed(0))
     assert img.shape == (1, 32, 32, 3) and bool(torch.isfinite(img).all())
+img, aux = predict.Predictor(bundle.engine, num_steps=2, noise_iters=0, aae_enabled=True,
+                             detailed=True)(batch, torch.Generator().manual_seed(0))
+assert bool(torch.isfinite(aux["local_losses"]).all())
+batch["seg"] = np.zeros((1, 32, 32, 12), np.float32)
+state = train.train({"lightning": {"max_epochs": 1}, "log_dir": sys.argv[2]}, [batch], bundle,
+                    seed=0)
+assert state.step == 1
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "udifftext_tpu"))
 print(json.dumps(bad))
 """
 
 
-def test_port_never_imports_jax():
+def test_port_never_imports_jax(tmp_path):
+    """Sampling (plain and AAE) and one training step in a fresh process
+    leave jax, flax and the JAX package out of sys.modules."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)
     res = subprocess.run(
-        [sys.executable, "-c", _NO_JAX_SCRIPT, json.dumps(U.tiny_model_cfg())],
+        [sys.executable, "-c", _NO_JAX_SCRIPT, json.dumps(U.tiny_model_cfg()), str(tmp_path)],
         capture_output=True, text=True, env=env, cwd=str(REPO), timeout=300,
     )
     assert res.returncode == 0, res.stderr[-3000:]

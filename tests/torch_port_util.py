@@ -23,6 +23,12 @@ from udifftext_tpu import charset
 
 IMG, LAT, SEQ = 32, 16, 12
 
+# The suite runs in several pytest-xdist workers at once. torch's default of
+# one spinning intra-op thread per core oversubscribes the CPU, and these
+# tests' tiny ops then spend most of their time waiting on each other (and
+# slow every other worker's tests with them).
+torch.set_num_threads(1)
+
 
 def tiny_model_cfg() -> Dict[str, Any]:
     return yaml.safe_load(TINY_MODEL_YAML)["model"]["params"]

@@ -2,14 +2,15 @@
 graph).
 
 `build_engine` takes the `model.params` node of a textdesign_sd_2.yaml graph
-(as a plain dict; `TEXTDESIGN_SD_2` holds the shipped one, so no YAML parser
-is needed) and returns the engine with its sampler settings. Parts of the
-graph the port does not run yet raise NotImplementedError instead of being
-dropped.
+(as a plain dict; `TEXTDESIGN_SD_2` and `TEXTDESIGN_SD_2_TRAIN` hold the
+shipped ones, so no YAML parser is needed) and returns the engine with its
+sampler settings. Parts of the graph the port does not run yet raise
+NotImplementedError instead of being dropped.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from typing import Any, Dict, Optional
@@ -18,13 +19,14 @@ import torch
 from torch import nn
 
 from .diffusion.denoiser import DiscreteDenoiser
-from .diffusion.loss import LocalLossConfig
-from .diffusion.schedules import LegacyDDPMDiscretization
+from .diffusion.loss import FullLossConfig
+from .diffusion.schedules import DiscreteSampling, LegacyDDPMDiscretization
 from .engine import DiffusionEngine
 from .models.label_encoder import LabelEncoder
 from .models.layers import GroupNorm32, cast_weights
 from .models.unet import UNetModel
 from .models.vae import AutoencoderKL, DDConfig
+from .parallel.train import trainable_mask
 
 _P = "sgm.modules.diffusionmodules."
 _DDPM = {"target": _P + "discretizer.LegacyDDPMDiscretization"}
@@ -127,6 +129,12 @@ TEXTDESIGN_SD_2: Dict[str, Any] = {
 }
 
 
+# `model.params` of configs/train/textdesign_sd_2.yaml, the fine-tuning graph
+# (tests/test_torch_train.py holds the two equal). The shipped train and
+# test graphs are the same file content.
+TEXTDESIGN_SD_2_TRAIN: Dict[str, Any] = copy.deepcopy(TEXTDESIGN_SD_2)
+
+
 @dataclasses.dataclass(frozen=True)
 class SamplerSettings:
     num_steps: int = 50
@@ -164,23 +172,29 @@ def _check_embedders(emb_models) -> Dict[str, Any]:
     _require(not lat.get("emb_key") and lat.get("input_key", "masked") == "masked",
              "LatentEncoder other than the masked image")
     _require(not any(e.get("is_trainable") for e in emb_models), "trainable embedders")
-    return {"label": _params(le), "mask_multiplier": float(_params(sr).get("multiplier", 0.5))}
+    return {"label": le, "mask_multiplier": float(_params(sr).get("multiplier", 0.5))}
 
 
 def build_engine(model_cfg: Dict[str, Any], unet_dtype: torch.dtype = torch.bfloat16,
-                 device: torch.device | str = "cpu") -> EngineBundle:
+                 device: torch.device | str = "cpu", train: bool = False,
+                 remat: bool = False) -> EngineBundle:
     """`model.params` of a textdesign_sd_2.yaml graph → engine on `device`.
 
     The UNet computes in `unet_dtype` (weights stored in it), the VAE in fp32
-    (bf16 with `first_stage_bf16: true`), the LabelEncoder in fp32. Weights
-    are PyTorch's default initialization; load a state dict or call
-    `randomize_parameters` next."""
+    (bf16 with `first_stage_bf16: true`), the LabelEncoder in fp32. Every
+    parameter is frozen (requires_grad False). With `train`, the UNet
+    parameters whose name matches one of the graph's `opt_keys` (t_attn,
+    t_norm) are trainable instead, and kept in fp32 as master weights (their
+    layers cast them to the compute dtype at use). `remat` turns on the
+    UNet's gradient checkpointing. Weights are PyTorch's default
+    initialization; load a state dict or call `randomize_parameters` next."""
     with torch.device(device):  # parameters are created (and initialized) in place
-        return _build_engine(model_cfg, unet_dtype, device)
+        return _build_engine(model_cfg, unet_dtype, device, train, remat)
 
 
-def _build_engine(model_cfg, unet_dtype, device) -> EngineBundle:
+def _build_engine(model_cfg, unet_dtype, device, train, remat) -> EngineBundle:
     p = model_cfg
+    opt_keys = tuple(p.get("opt_keys", ("t_attn", "t_norm")))
     net = _params(p.get("network_config"))
     _require(int(net.get("ctrl_channels", 0)) == 0, "the ctrl block")
     _require(net.get("use_label") is None and net.get("adm_in_channels") is None,
@@ -200,6 +214,7 @@ def _build_engine(model_cfg, unet_dtype, device) -> EngineBundle:
         t_context_dim=net.get("t_context_dim"),
         v_context_dim=net.get("v_context_dim"),
         dtype=unet_dtype,
+        remat=remat,
     )
 
     vae_p = _params(p.get("first_stage_config"))
@@ -218,7 +233,7 @@ def _build_engine(model_cfg, unet_dtype, device) -> EngineBundle:
     )
 
     emb = _check_embedders(_params(p.get("conditioner_config")).get("emb_models", []) or [])
-    le_p = emb["label"]
+    le_p = _params(emb["label"])
     label_encoder = LabelEncoder(
         max_len=le_p.get("max_len", 12), emb_dim=le_p.get("emb_dim", 2048),
         n_heads=le_p.get("n_heads", 8), n_trans_layers=le_p.get("n_trans_layers", 12),
@@ -232,25 +247,37 @@ def _build_engine(model_cfg, unet_dtype, device) -> EngineBundle:
         _require("LegacyDDPM" in (node or {}).get("target", "LegacyDDPM"),
                  "a discretization other than LegacyDDPM")
     loss_p = _params(p.get("loss_fn_config"))
+    _require(not loss_p.get("ocr_enabled", False), "the OCR loss term (ocr_enabled: true)")
+    sig_p = _params(loss_p.get("sigma_sampler_config"))
+    _require("DiscreteSampling" in (loss_p.get("sigma_sampler_config") or {}).get(
+        "target", "DiscreteSampling"), "a sigma sampler other than DiscreteSampling")
+    _require("LegacyDDPM" in (sig_p.get("discretization_config") or {}).get(
+        "target", "LegacyDDPM"), "a discretization other than LegacyDDPM")
     samp_p = _params(p.get("sampler_config"))
 
     engine = DiffusionEngine(
-        unet=cast_weights(unet, unet_dtype),
+        unet=cast_weights(unet, unet_dtype, keep_fp32=opt_keys if train else ()),
         vae=cast_weights(vae, vae_dtype),
         label_encoder=label_encoder,
         denoiser=DiscreteDenoiser(num_idx=den_p.get("num_idx", 1000)),
-        loss_cfg=LocalLossConfig(
+        sigma_sampler=DiscreteSampling(num_idx=sig_p.get("num_idx", 1000)),
+        loss_cfg=FullLossConfig(
             kernel_size=loss_p.get("kernel_size", 3),
             gaussian_sigma=loss_p.get("gaussian_sigma", 1.0),
             min_attn_size=loss_p.get("min_attn_size", 16),
+            lambda_local_loss=loss_p.get("lambda_local_loss", 0.01),
         ),
         scale_factor=p.get("scale_factor", 0.18215),
+        ucg_rate_label=float(emb["label"].get("ucg_rate", 0.0)),
         mask_multiplier=emb["mask_multiplier"],
         latent_factor=2 ** (len(vae.cfg.ch_mult) - 1),
     )
     # convs read NHWC activations through an NCHW view, which is
     # channels_last in memory: keep their weights channels_last too
     engine.to(device=device, memory_format=torch.channels_last)
+    trainable = trainable_mask(engine.named_parameters(), opt_keys) if train else {}
+    for name, prm in engine.named_parameters():
+        prm.requires_grad_(trainable.get(name, False))
     sampler = SamplerSettings(
         num_steps=samp_p.get("num_steps", 50),
         cfg_scale=_params(samp_p.get("guider_config")).get("scale", 5.0),

@@ -1,7 +1,9 @@
 """Conditioning for the shipped embedder graph (port of
 `udifftext_tpu/conditioning.py:43-132`): LabelEncoder → t_crossattn, and
 concat = [bilinear ×multiplier mask (1 ch), scaled VAE latent of the masked
-image (4 ch)], NHWC.
+image (4 ch)], NHWC. For training, the label embedding is dropped per
+sample (classifier-free guidance dropout) by a keep mask drawn as
+Bernoulli(1 − ucg_rate_label).
 """
 
 from __future__ import annotations
@@ -27,12 +29,24 @@ def spatial_rescale(x: torch.Tensor, multiplier: float = 0.125) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class Conditioner:
-    """Builds the cond dict of a batch; inference only (no label dropout)."""
+    """Builds the cond dict of a batch, for sampling or (with a keep mask)
+    for training."""
 
     label_encoder: LabelEncoder
     vae: AutoencoderKL
     scale_factor: float = 0.18215
     mask_multiplier: float = 0.125
+    ucg_rate_label: float = 0.0
+
+    def draw_ucg_keep(self, n: int, generator: Optional[torch.Generator] = None,
+                      device: torch.device | str = "cpu") -> Optional[torch.Tensor]:
+        """The training label-dropout mask (n,) fp32: 1 keeps a sample's label
+        embedding (probability 1 − ucg_rate_label), 0 zeroes it; None when
+        the rate is 0."""
+        if self.ucg_rate_label <= 0.0:
+            return None
+        u = torch.rand(n, generator=generator, device=device)
+        return (u < 1.0 - self.ucg_rate_label).float()
 
     def encode_masked(self, masked: torch.Tensor,
                       posterior_eps: Optional[torch.Tensor]) -> torch.Tensor:
@@ -44,8 +58,13 @@ class Conditioner:
 
     def __call__(self, batch: Dict[str, torch.Tensor],
                  posterior_eps: Optional[torch.Tensor] = None,
-                 force_zero_label: bool = False) -> Dict[str, torch.Tensor]:
+                 force_zero_label: bool = False,
+                 ucg_keep: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """The cond dict; `ucg_keep` (B,) multiplies the label embedding (the
+        training dropout, `draw_ucg_keep`)."""
         t_emb = self.label_encoder(batch["label_ids"])
+        if ucg_keep is not None:
+            t_emb = t_emb * ucg_keep.to(t_emb.dtype)[:, None, None]
         if force_zero_label:
             t_emb = torch.zeros_like(t_emb)
         mask_small = spatial_rescale(batch["mask"], self.mask_multiplier)

@@ -1,12 +1,14 @@
 """Scene-text editing demo on the port, as a command-line one-shot:
 
     python -m udifftext_tpu_torch.demo --image in.png --mask mask.png \
-        --text HELLO --out out.png [--steps N --scale S --seed K]
+        --text HELLO --out out.png [--steps N --scale S --seed K] [--aae] [--detailed]
 
 Reads ./configs/demo.yaml (and the model graph it names) like the JAX
 build's demo.py, resizes image and mask to H×W, and runs the predictor with
-the candidate-batched init-noise search. Loading a checkpoint into the port
-is not ported yet: with no checkpoint file the weights are seeded random,
+the candidate-batched init-noise search. --aae turns on attend-and-excite
+and prints the per-step local losses; --detailed saves the middle step's
+t_attn maps as .npy files under ./temp/attn_map/. Loading a checkpoint
+into the port is not ported yet: with no checkpoint file the weights are seeded random,
 as the JAX demo falls back to a fresh init; an existing checkpoint raises.
 Needs PyYAML and Pillow; runs on the GPU when there is one.
 """
@@ -60,6 +62,8 @@ def main(argv=None) -> None:
     p.add_argument("--steps", type=int, default=None)
     p.add_argument("--scale", type=float, default=None)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--aae", action="store_true")
+    p.add_argument("--detailed", action="store_true")
     args = p.parse_args(argv)
 
     cfgs = load_config("./configs/demo.yaml")
@@ -79,15 +83,26 @@ def main(argv=None) -> None:
     scale = args.scale if args.scale is not None else scale
     predictor = Predictor(bundle.engine, num_steps=steps, cfg_scale=scale,
                           noise_iters=int(cfgs.get("noise_iters", 10)),
+                          aae_enabled=args.aae, detailed=args.detailed,
                           noise_search_batched=bool(cfgs.get("noise_search_batched", True)))
     image = np.asarray(Image.open(args.image).convert("RGB"))
     mask = np.asarray(Image.open(args.mask).convert("L"))
     batch = build_batch(image, mask, args.text, cfgs.get("H", 512), cfgs.get("W", 512),
                         cfgs.get("seq_len", 12))
     gen = torch.Generator(device).manual_seed(args.seed)
-    images, _ = predictor(batch, gen)
+    images, aux = predictor(batch, gen)
     Image.fromarray((images[0].float().cpu().numpy() * 255).astype(np.uint8)).save(args.out)
     print(f"saved {args.out}")
+    aux.pop("noise_scores", None)
+    aux.pop("inters", None)
+    if "local_losses" in aux:
+        losses = aux.pop("local_losses").float().mean(dim=-1).cpu().numpy()
+        print(f"Local losses: {[round(float(v), 4) for v in losses]}")
+    if args.detailed:
+        os.makedirs("./temp/attn_map", exist_ok=True)
+        for k, v in aux.items():
+            np.save(f"./temp/attn_map/{k.replace('.', '_')}.npy", v.float().cpu().numpy())
+        print("saved attention maps under ./temp/attn_map/")
 
 
 if __name__ == "__main__":

@@ -1,4 +1,5 @@
-"""DiscreteDenoiser (port of `udifftext_tpu/diffusion/denoiser.py`).
+"""DiscreteDenoiser (port of `udifftext_tpu/diffusion/denoiser.py`), eps
+scaling and eps loss weighting.
 
 D(x; sigma) = network(x·c_in, c_noise, cond)·c_out + x·c_skip, with sigma
 quantized to the nearest entry of the 1000-step DDPM table and c_noise to
@@ -31,6 +32,10 @@ class DiscreteDenoiser:
     def sigmas(self) -> np.ndarray:
         """Ascending table: index i is DDPM timestep i."""
         return self.discretization(self.num_idx, do_append_zero=False, flip=True)
+
+    def w(self, sigma: torch.Tensor) -> torch.Tensor:
+        """EpsWeighting of the loss: sigma⁻²."""
+        return sigma**-2.0
 
     def _table(self, like: torch.Tensor) -> torch.Tensor:
         return torch.as_tensor(self.sigmas, device=like.device)

@@ -1,18 +1,23 @@
-"""The min-local attention loss that scores init-noise candidates (port of
-`udifftext_tpu/diffusion/loss.py:32-156`).
+"""Training and guidance losses (port of `udifftext_tpu/diffusion/loss.py`
+without the OCR term): the local attention loss of fine-tuning, the
+min-local loss that scores init-noise candidates and drives attend-and-
+excite, the weighted diffusion loss and their sum, `full_loss`.
 
-Layouts (NHWC): mask (B, H, W, 1); seg_mask (B, L); attention maps
-{name: (B, heads, N, L')} with N = h·w.
+Layouts (NHWC): seg (B, H, W, L); mask (B, H, W, 1); seg_mask (B, L);
+attention maps {name: (B, heads, N, L')} with N = h·w.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Dict, Tuple
+from typing import Any, Callable, Dict, Iterator, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from .schedules import append_dims
 
 
 def get_gaussian_kernel(kernel_size: int = 3, sigma: float = 1.0) -> np.ndarray:
@@ -53,6 +58,44 @@ def _attn_hw(n: int, img_h: int, img_w: int) -> Tuple[int, int]:
     return h, n // h
 
 
+def _layer_maps(attn_maps: Dict[str, torch.Tensor], seg_l: int, img_hw: Tuple[int, int],
+                kernel: torch.Tensor, min_attn_size: int) -> Iterator[Tuple[torch.Tensor, Tuple]]:
+    """Per qualifying t_attn layer (sorted by name, side >= min_attn_size):
+    the head-mean map of the first seg_l tokens, blurred, (B, h·w, seg_l),
+    and its (h, w)."""
+    for name in sorted(attn_maps):
+        if not name.endswith("t_attn"):
+            continue
+        amap = attn_maps[name].float()
+        b, _, n, _ = amap.shape
+        hw = _attn_hw(n, *img_hw)
+        if min(hw) < min_attn_size:
+            continue
+        m = amap[..., :seg_l].mean(dim=1).reshape(b, hw[0], hw[1], seg_l)
+        yield gaussian_blur_depthwise(m, kernel).reshape(b, -1, seg_l), hw
+
+
+def local_loss(attn_maps: Dict[str, torch.Tensor], seg: torch.Tensor, seg_mask: torch.Tensor,
+               kernel: torch.Tensor, min_attn_size: int = 16) -> torch.Tensor:
+    """Each valid character's out-of-seg peak minus its in-seg peak, averaged
+    over the characters and the qualifying layers. Returns (B,)."""
+    seg_l = seg_mask.shape[1]
+    total = 0.0
+    count = 0
+    for blurred, hw in _layer_maps(attn_maps, seg_l, seg.shape[1:3], kernel, min_attn_size):
+        s = interpolate_nearest_torch(seg, hw).float().reshape(seg.shape[0], -1, seg_l)
+        p_loss = (s * blurred).amax(dim=1)
+        n_loss = ((1.0 - s) * blurred).amax(dim=1)
+        denom = seg_mask.sum(dim=-1)
+        p = (p_loss * seg_mask).sum(dim=-1) / denom
+        n = (n_loss * seg_mask).sum(dim=-1) / denom
+        total = total + (n - p)
+        count += 1
+    if count == 0:
+        return torch.zeros(seg.shape[0], dtype=torch.float32, device=seg.device)
+    return total / count
+
+
 def min_local_loss(attn_maps: Dict[str, torch.Tensor], mask: torch.Tensor,
                    seg_mask: torch.Tensor, kernel: torch.Tensor,
                    min_attn_size: int = 16) -> torch.Tensor:
@@ -61,17 +104,8 @@ def min_local_loss(attn_maps: Dict[str, torch.Tensor], mask: torch.Tensor,
     seg_l = seg_mask.shape[1]
     total = 0.0
     count = 0
-    for name in sorted(attn_maps):
-        if not name.endswith("t_attn"):
-            continue
-        amap = attn_maps[name].float()
-        b, _, n, _ = amap.shape
-        hw = _attn_hw(n, mask.shape[1], mask.shape[2])
-        if min(hw) < min_attn_size:
-            continue
-        m = amap[..., :seg_l].mean(dim=1).reshape(b, hw[0], hw[1], seg_l)
-        blurred = gaussian_blur_depthwise(m, kernel).reshape(b, -1, seg_l)
-        mask_map = interpolate_nearest_torch(mask, hw).float().reshape(b, -1, 1)
+    for blurred, hw in _layer_maps(attn_maps, seg_l, mask.shape[1:3], kernel, min_attn_size):
+        mask_map = interpolate_nearest_torch(mask, hw).float().reshape(mask.shape[0], -1, 1)
         p = (mask_map * blurred).amax(dim=1) + (1.0 - seg_mask)
         total = total - p.amin(dim=-1)
         count += 1
@@ -80,15 +114,39 @@ def min_local_loss(attn_maps: Dict[str, torch.Tensor], mask: torch.Tensor,
     return total / count
 
 
-class LocalLossConfig:
-    """The min-local loss settings of the model graph's `loss_fn_config`."""
+def diff_loss(model_output: torch.Tensor, target: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Per-sample weighted L2 reconstruction loss. Returns (B,)."""
+    per = w * (model_output - target) ** 2
+    return per.reshape(target.shape[0], -1).mean(dim=1)
 
-    def __init__(self, kernel_size: int = 3, gaussian_sigma: float = 1.0,
-                 min_attn_size: int = 16):
-        self.kernel_size = kernel_size
-        self.gaussian_sigma = gaussian_sigma
-        self.min_attn_size = min_attn_size
+
+@dataclasses.dataclass(frozen=True)
+class FullLossConfig:
+    """The `loss_fn_config` settings the port runs (the OCR term is not
+    ported; the builder raises on `ocr_enabled: true`)."""
+
+    kernel_size: int = 3
+    gaussian_sigma: float = 1.0
+    min_attn_size: int = 16
+    lambda_local_loss: float = 0.01
 
     @property
     def kernel(self) -> np.ndarray:
         return get_gaussian_kernel(self.kernel_size, self.gaussian_sigma)
+
+
+def full_loss(cfg: FullLossConfig, denoiser, network: Callable, cond: Dict[str, Any],
+              x: torch.Tensor, batch: Dict[str, torch.Tensor], sigmas: torch.Tensor,
+              noise: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Diffusion loss + lambda·local loss of the clean latent x noised at
+    `sigmas` (B,) with standard-normal `noise`; `network` must capture the
+    t_attn maps. Returns (loss, {loss/diff_loss, loss/local_loss,
+    loss/full_loss}), batch means."""
+    noised = x + noise * append_dims(sigmas, x.ndim)
+    model_output, aux = denoiser(network, noised, sigmas, cond)
+    w = append_dims(denoiser.w(sigmas), x.ndim)
+    d_loss = diff_loss(model_output, x, w).mean()
+    kernel = torch.as_tensor(cfg.kernel, device=x.device)
+    l_loss = local_loss(aux, batch["seg"], batch["seg_mask"], kernel, cfg.min_attn_size).mean()
+    loss = d_loss + cfg.lambda_local_loss * l_loss
+    return loss, {"loss/diff_loss": d_loss, "loss/local_loss": l_loss, "loss/full_loss": loss}

@@ -7,7 +7,7 @@ build; the per-step functions act on torch tensors.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -67,3 +67,24 @@ def sigma_to_idx(sigma: torch.Tensor, sigmas_table: torch.Tensor) -> torch.Tenso
 
 def quantize_sigma(sigma: torch.Tensor, sigmas_table: torch.Tensor) -> torch.Tensor:
     return sigmas_table[sigma_to_idx(sigma, sigmas_table)]
+
+
+@dataclasses.dataclass(frozen=True)
+class DiscreteSampling:
+    """Train-time sigma draw: a uniform index over the ascending num_idx-entry
+    DDPM table (index 0 the smallest sigma)."""
+
+    num_idx: int = 1000
+    discretization: LegacyDDPMDiscretization = LegacyDDPMDiscretization()
+
+    @property
+    def sigmas(self) -> np.ndarray:
+        return self.discretization(self.num_idx, do_append_zero=False, flip=True)
+
+    def draw_idx(self, n: int, generator: Optional[torch.Generator] = None,
+                 device: torch.device | str = "cpu") -> torch.Tensor:
+        return torch.randint(0, self.num_idx, (n,), generator=generator, device=device)
+
+    def __call__(self, idx: torch.Tensor) -> torch.Tensor:
+        """The table's sigmas at `idx` (fp32, on idx's device)."""
+        return torch.as_tensor(self.sigmas, device=idx.device)[idx]

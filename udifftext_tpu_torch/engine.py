@@ -1,20 +1,30 @@
-"""DiffusionEngine, the sampling half (port of `udifftext_tpu/engine.py`).
+"""DiffusionEngine (port of `udifftext_tpu/engine.py`): the training loss
+and sampling.
+
+`loss` is the fine-tuning objective: the VAE latent of the image noised at
+a sampled sigma, denoised by the UNet under the conditioning (with label
+dropout), scored by the weighted diffusion loss plus the local attention
+loss on the t_attn maps. The VAE and the LabelEncoder run without autograd.
 
 `sample` runs the inference path of test.py / demo.py: conditioning (label
 embedding, mask rescale, VAE encode of the masked image), the init-noise
 search (candidates scored by the min-local attention loss after a 2-step
-rollout), the CFG Euler-EDM loop and the VAE decode.
+rollout), the CFG Euler-EDM loop and the VAE decode. With `aae_enabled`,
+attend-and-excite descends the latent on the min-local loss through the
+unguided UNet before each step; with `detailed`, the middle step's t_attn
+maps are returned.
 
-Noise is injectable: `posterior_eps` (the VAE posterior's standard-normal
-draw) and `noise` (the search's candidates) may be given explicitly;
-otherwise both are drawn from `generator`, eps first. This is how the port
-is held to the JAX engine, whose threefry draws torch cannot reproduce.
+Noise is injectable: every random draw of `loss` and `sample` may be given
+explicitly; otherwise it is drawn from `generator` in the order each method
+documents. This is how the port is held to the JAX engine, whose threefry
+draws torch cannot reproduce.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -22,13 +32,36 @@ from .conditioning import Conditioner
 from .diffusion import sampling as SP
 from .diffusion.denoiser import DiscreteDenoiser
 from .diffusion.guiders import VanillaCFG
-from .diffusion.loss import LocalLossConfig, min_local_loss
-from .diffusion.schedules import LegacyDDPMDiscretization, append_dims
+from .diffusion.loss import FullLossConfig, full_loss, min_local_loss
+from .diffusion.schedules import (
+    DiscreteSampling,
+    LegacyDDPMDiscretization,
+    append_dims,
+    eps_scaling,
+)
 from .models.label_encoder import LabelEncoder
 from .models.unet import UNetModel
-from .models.vae import AutoencoderKL
+from .models.vae import AutoencoderKL, DiagonalGaussian
 
 Batch = Dict[str, torch.Tensor]
+
+AAE_MAX_ITER = 20  # extra refinement iterations per enabled step
+
+
+def aae_schedule(num_steps: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Attend-and-excite settings per sampling step (fp32 alphas, iteration
+    flags, fp32 thresholds): step size 20·sqrt(1 − i/num_steps); the extra
+    iterations run at steps 5, 9, …, 25 with thresholds −0.5 … −0.8."""
+    scales = np.linspace(1.0, 0.0, num_steps + 1)
+    alphas = (20.0 * np.sqrt(scales)[:-1]).astype(np.float32)
+    iter_en = np.zeros(num_steps, bool)
+    thres = np.zeros(num_steps, np.float32)
+    thres_lst = np.linspace(-0.5, -0.8, 6)
+    for pos, i in enumerate(np.linspace(5, 25, 6, dtype=np.int32)):
+        if i < num_steps:
+            iter_en[i] = True
+            thres[i] = thres_lst[pos]
+    return alphas, iter_en, thres
 
 
 class DiffusionEngine(nn.Module):
@@ -39,8 +72,10 @@ class DiffusionEngine(nn.Module):
         label_encoder: LabelEncoder,
         denoiser: DiscreteDenoiser = DiscreteDenoiser(),
         discretization: LegacyDDPMDiscretization = LegacyDDPMDiscretization(),
-        loss_cfg: LocalLossConfig = LocalLossConfig(),
+        sigma_sampler: DiscreteSampling = DiscreteSampling(),
+        loss_cfg: FullLossConfig = FullLossConfig(),
         scale_factor: float = 0.18215,
+        ucg_rate_label: float = 0.1,
         mask_multiplier: float = 0.125,
         latent_factor: int = 8,
     ):
@@ -48,8 +83,10 @@ class DiffusionEngine(nn.Module):
         self.unet, self.vae, self.label_encoder = unet, vae, label_encoder
         self.denoiser = denoiser
         self.discretization = discretization
+        self.sigma_sampler = sigma_sampler
         self.loss_cfg = loss_cfg
         self.scale_factor = scale_factor
+        self.ucg_rate_label = ucg_rate_label
         self.mask_multiplier = mask_multiplier
         self.latent_factor = latent_factor
 
@@ -59,10 +96,60 @@ class DiffusionEngine(nn.Module):
 
     @property
     def conditioner(self) -> Conditioner:
-        return Conditioner(self.label_encoder, self.vae, self.scale_factor, self.mask_multiplier)
+        return Conditioner(self.label_encoder, self.vae, self.scale_factor, self.mask_multiplier,
+                           self.ucg_rate_label)
 
     def conditionings(self, batch: Batch, posterior_eps: Optional[torch.Tensor] = None):
         return self.conditioner.get_unconditional_conditioning(batch, posterior_eps)
+
+    def encode_first_stage(self, x: torch.Tensor,
+                           posterior_eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Scaled VAE latent of images x: a posterior sample for the given
+        standard-normal `posterior_eps`, or the posterior mode for None."""
+        post = DiagonalGaussian(self.vae.encode_moments(x))
+        z = post.mode() if posterior_eps is None else post.sample(posterior_eps.to(post.mean.dtype))
+        return self.scale_factor * z
+
+    def loss(
+        self,
+        batch: Batch,
+        generator: Optional[torch.Generator] = None,
+        image_eps: Optional[torch.Tensor] = None,
+        masked_eps: Optional[torch.Tensor] = None,
+        ucg_keep: Optional[torch.Tensor] = None,
+        sigma_idx: Optional[torch.Tensor] = None,
+        noise: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The fine-tuning loss of a batch (image, masked, mask, seg,
+        seg_mask, label_ids) → (loss, {loss/diff_loss, loss/local_loss,
+        loss/full_loss}), differentiable in the UNet's parameters.
+
+        The random draws, each (B, h, w, 4) standard normal with (h, w) the
+        latent size unless said otherwise, are taken from the arguments or,
+        when None, from `generator` in this order: image_eps (the image
+        posterior), masked_eps (the masked image's posterior), ucg_keep (B,)
+        (label dropout keep mask, Conditioner.draw_ucg_keep), sigma_idx (B,)
+        (indices into the ascending sigma table), noise (the diffusion
+        noise)."""
+        b, h, w = batch["image"].shape[:3]
+        shape = (b, h // self.latent_factor, w // self.latent_factor, 4)
+        dev = batch["image"].device
+        conditioner = self.conditioner
+        if image_eps is None:
+            image_eps = torch.randn(shape, generator=generator, device=dev)
+        if masked_eps is None:
+            masked_eps = torch.randn(shape, generator=generator, device=dev)
+        if ucg_keep is None:
+            ucg_keep = conditioner.draw_ucg_keep(b, generator, dev)
+        if sigma_idx is None:
+            sigma_idx = self.sigma_sampler.draw_idx(b, generator, dev)
+        if noise is None:
+            noise = torch.randn(shape, generator=generator, device=dev)
+        with torch.no_grad():  # the VAE and the LabelEncoder are frozen
+            x = self.encode_first_stage(batch["image"], image_eps)
+            cond = conditioner(batch, masked_eps, ucg_keep=ucg_keep)
+        return full_loss(self.loss_cfg, self.denoiser, self.network(capture_attn=True), cond, x,
+                         batch, self.sigma_sampler(sigma_idx), noise.to(x.dtype))
 
     def decode_first_stage(self, z: torch.Tensor) -> torch.Tensor:
         return self.vae.decode(z / self.scale_factor)
@@ -147,6 +234,89 @@ class DiffusionEngine(nn.Module):
             scores.append(s)
         return best, torch.stack(scores)
 
+    def _aae_update(self, c, batch: Batch, x: torch.Tensor, sigma: torch.Tensor, alpha: float,
+                    iter_enabled: bool, thres: float, ctx_kv) -> torch.Tensor:
+        """Attend-and-excite: gradient descent of x on the summed min-local
+        loss of the unguided UNet on `c` (whose cross-attention K/V the
+        caller hoisted into `ctx_kv`). The UNet is fed RAW x, not the
+        c_in-scaled input the denoiser would give it, as the reference does
+        (the step sizes and thresholds assume that loss surface). One update
+        always; then, where `iter_enabled`, more while the loss before the
+        last update is above `thres`, at most AAE_MAX_ITER. Each extra
+        iteration reads the loss on the host once."""
+        network = self.network(capture_attn=True, ctx_kv=ctx_kv)
+        kernel = torch.as_tensor(self.loss_cfg.kernel, device=x.device)
+        sigma_q = self.denoiser.quantize_sigma(sigma)
+        c_noise = eps_scaling(append_dims(sigma_q, x.ndim))[3]
+        c_noise = self.denoiser.quantize_c_noise(c_noise.reshape(sigma.shape))
+
+        def step(xx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+            xx = xx.detach().requires_grad_(True)
+            _, aux = network(xx, c_noise, c)
+            val = min_local_loss(aux, batch["mask"], batch["seg_mask"], kernel,
+                                 self.loss_cfg.min_attn_size).sum()
+            (g,) = torch.autograd.grad(val, xx)
+            return xx.detach() - alpha * g, val.detach()
+
+        with torch.enable_grad():
+            x, val = step(x)
+            it = 1
+            while iter_enabled and it <= AAE_MAX_ITER and val.item() > thres:
+                x, val = step(x)
+                it += 1
+        return x
+
+    def _attn_map_shapes(self, b: int, latent_hw: Tuple[int, int],
+                         cond: Dict[str, torch.Tensor]) -> Dict[str, Tuple[int, ...]]:
+        """Shapes of the t_attn maps the UNet captures, keyed as it keys them,
+        for a batch of b latents of size latent_hw (rectangular allowed)."""
+        l = cond["t_crossattn"].shape[1]
+        tokens = {}
+        h, w = latent_hw
+        for level in range(len(self.unet.channel_mult)):
+            tokens[2**level] = h * w
+            h, w = h // 2, w // 2
+        return {f"{prefix}.{j}.t_attn": (b, spec.heads, tokens[spec.ds], l)
+                for prefix, _, specs in self.unet._blocks()
+                for j, spec in enumerate(specs) if spec.kind == "attn"}
+
+    def _sample_guided(self, c, uc, batch: Batch, x: torch.Tensor, sigmas: torch.Tensor,
+                       cfg_scale: float, aae_enabled: bool, detailed: bool):
+        """The Euler loop with attend-and-excite before each step and/or the
+        middle step's conditional t_attn maps kept. Returns (x, the middle
+        step's maps ({} unless detailed), per-step {"inter": sample 0's
+        denoised latent (steps, h, w, 4), "local_loss": the conditional
+        half's min-local loss (steps, B)} or None unless aae_enabled)."""
+        n = sigmas.shape[0] - 1
+        b = x.shape[0]
+        denoise = self.make_denoise_fn(c, uc, cfg_scale, capture_attn=True)
+        kernel = torch.as_tensor(self.loss_cfg.kernel, device=x.device)
+        aae_kv = (self.unet.precompute_context_kv(c.get("t_crossattn"), c.get("v_crossattn"))
+                  if aae_enabled else None)
+        alphas, iter_en, thres = aae_schedule(n)
+        mid = n // 2
+        saved = ({k: torch.zeros(s, device=x.device)
+                  for k, s in self._attn_map_shapes(b, tuple(x.shape[1:3]), c).items()}
+                 if detailed else {})
+        inters, losses = [], []
+        for i in range(n):
+            sigma = sigmas[i].expand(b).to(x.dtype)
+            if aae_enabled:
+                x = self._aae_update(c, batch, x, sigma, float(alphas[i]), bool(iter_en[i]),
+                                     float(thres[i]), aae_kv)
+            denoised, aux = denoise(x, sigma)
+            if detailed and i == mid:
+                for k in saved:
+                    saved[k].copy_(aux[k])
+            if aae_enabled:
+                inters.append(denoised[0].float())
+                losses.append(min_local_loss(aux, batch["mask"], batch["seg_mask"], kernel,
+                                             self.loss_cfg.min_attn_size))
+            x = x + append_dims(sigmas[i + 1] - sigma, x.ndim) * SP.to_d(x, sigma, denoised)
+        per_step = ({"inter": torch.stack(inters), "local_loss": torch.stack(losses)}
+                    if aae_enabled else None)
+        return x, saved, per_step
+
     @torch.no_grad()
     def sample(
         self,
@@ -163,15 +333,14 @@ class DiffusionEngine(nn.Module):
         return_latents: bool = False,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Text inpainting (test.py predict() semantics) → (images in [0, 1]
-        (B, H, W, 3), aux). aux["noise_scores"] holds the search's scores.
+        (B, H, W, 3), aux). aux["noise_scores"] holds the search's scores;
+        with detailed, aux also holds the middle step's t_attn maps (keyed by
+        layer); with aae_enabled, aux["inters"] (steps, H, W, 3), sample 0's
+        decoded denoised latent per step in [0, 1], and aux["local_losses"]
+        (steps, B).
 
         posterior_eps: (B, h, w, 4) standard normal; noise: (max(noise_iters,
         1), B, h, w, 4) standard normal, with (h, w) the latent size."""
-        if aae_enabled or detailed:
-            raise NotImplementedError(
-                "attend-and-excite (aae_enabled) and attention-map capture (detailed) "
-                "are not ported yet"
-            )
         b, h, w = batch["masked"].shape[:3]
         shape = (b, h // self.latent_factor, w // self.latent_factor, 4)
         dev = self.device
@@ -192,8 +361,17 @@ class DiffusionEngine(nn.Module):
         else:
             x0 = noise[0]
         sigmas = torch.as_tensor(self.discretization(num_steps, do_append_zero=True), device=dev)
-        denoise = self.make_denoise_fn(c, uc, cfg_scale)
-        z = SP.sample_euler_edm(denoise, SP.init_latent(x0, sigmas), sigmas)
+        x = SP.init_latent(x0, sigmas)
+        if aae_enabled or detailed:
+            z, maps, per_step = self._sample_guided(c, uc, batch, x, sigmas, cfg_scale,
+                                                    aae_enabled, detailed)
+            aux.update(maps)
+            if per_step is not None:
+                inters = torch.cat([self.decode_first_stage(f[None]) for f in per_step["inter"]])
+                aux["inters"] = torch.clamp((inters + 1.0) / 2.0, 0.0, 1.0)
+                aux["local_losses"] = per_step["local_loss"]
+        else:
+            z = SP.sample_euler_edm(self.make_denoise_fn(c, uc, cfg_scale), x, sigmas)
         if return_latents:
             return z, aux
         img = self.decode_first_stage(z)

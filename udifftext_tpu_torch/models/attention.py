@@ -93,9 +93,9 @@ class _Proj(nn.Module):
 class GEGLUFeedForward(nn.Module):
     """(h ⊙ gelu(g))·W2 + b2 with [h, g] = x·W1 + b1, inner width 4·dim.
 
-    On CUDA with N % 128 == 0 it runs the fused kernel (ops/geglu.py), which
-    keeps the 8×-wide hidden out of device memory; otherwise the plain
-    composition in the compute dtype."""
+    On CUDA with N % 128 == 0 it runs the fused kernel (ops/geglu.py,
+    differentiable), which keeps the 8×-wide hidden out of device memory;
+    otherwise the plain composition in the compute dtype."""
 
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()

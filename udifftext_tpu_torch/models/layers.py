@@ -7,7 +7,9 @@ and writes NHWC without transposing data.
 
 Dense and conv layers compute in the dtype of their input; their weights
 are cast to it at use (a no-op once `cast_weights` has stored them in the
-compute dtype). Norm parameters stay fp32 and norms compute in fp32.
+compute dtype; for fp32 master weights the cast is in the autograd graph,
+so their gradient arrives in fp32). Norm parameters stay fp32 and norms
+compute in fp32.
 """
 
 from __future__ import annotations
@@ -99,10 +101,17 @@ def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
     return x[:, :, None, :, None, :].expand(b, h, 2, w, 2, c).reshape(b, 2 * h, 2 * w, c)
 
 
-def cast_weights(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+def name_has_key(name: str, keys) -> bool:
+    """Whether a dotted parameter/module name has a segment containing one of
+    `keys` (the JAX build's per-path-segment `opt_keys` match)."""
+    return any(k in seg for seg in name.split(".") for k in keys)
+
+
+def cast_weights(module: nn.Module, dtype: torch.dtype, keep_fp32=()) -> nn.Module:
     """Store every Linear/Conv2d weight and bias of `module` in `dtype` (the
-    compute dtype), leaving norm parameters in fp32."""
-    for m in module.modules():
-        if isinstance(m, (nn.Linear, nn.Conv2d)):
+    compute dtype), leaving norm parameters, and modules whose name matches
+    one of `keep_fp32` (trainable master weights), in fp32."""
+    for name, m in module.named_modules():
+        if isinstance(m, (nn.Linear, nn.Conv2d)) and not name_has_key(name, keep_fp32):
             m.to(dtype)
     return module

@@ -16,6 +16,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .attention import SpatialTransformer
 from .layers import Conv1x1, Conv3x3, Dense, GroupNorm32, timestep_embedding, upsample_nearest_2x
@@ -148,6 +149,7 @@ class UNetModel(nn.Module):
         t_context_dim: Optional[int] = 2048,
         v_context_dim: Optional[int] = None,
         dtype: torch.dtype = torch.float32,
+        remat: bool = False,
     ):
         super().__init__()
         self.in_channels = in_channels
@@ -156,6 +158,10 @@ class UNetModel(nn.Module):
         self.transformer_depth = transformer_depth
         self.t_context_dim = t_context_dim
         self.dtype = dtype
+        # gradient checkpointing of every ResBlock and SpatialTransformer
+        # (the JAX build's `remat`): their activations are recomputed in the
+        # backward instead of kept, so the kernels in them launch again there
+        self.remat = remat
         self.plan = unet_plan(model_channels, num_res_blocks, attention_resolutions,
                               channel_mult, num_head_channels, num_heads)
         time_dim = model_channels * 4
@@ -215,12 +221,14 @@ class UNetModel(nn.Module):
 
     def _apply_block(self, prefix, mods, specs, h, emb, t_context, v_context,
                      capture_attn, attn_maps, ctx_kv):
+        remat = self.remat and torch.is_grad_enabled()
         for j, (m, s) in enumerate(zip(mods, specs)):
             if s.kind == "res":
-                h = m(h, emb)
+                h = checkpoint(m, h, emb, use_reentrant=False) if remat else m(h, emb)
             elif s.kind == "attn":
                 layer_kv = ctx_kv.get(f"{prefix}.{j}") if ctx_kv else None
-                h, maps = m(h, t_context, v_context, capture_attn, layer_kv)
+                args = (h, t_context, v_context, capture_attn, layer_kv)
+                h, maps = checkpoint(m, *args, use_reentrant=False) if remat else m(*args)
                 if capture_attn:
                     for d, amap in enumerate(maps):
                         if amap is None:

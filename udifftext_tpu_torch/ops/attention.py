@@ -1,9 +1,10 @@
 """Scaled-dot-product attention dispatch.
 
 The port of `udifftext_tpu/ops/attention.py`: CUDA tensors of the latent
-self-attention shapes go to the flash kernel (ops/flash_attention.py);
-every other shape, and every CPU tensor, takes the plain matmul + fp32
-softmax path, as the TPU build sends them to XLA.
+self-attention shapes go to the flash kernels (ops/flash_attention.py,
+differentiable: its backward is the flash backward kernel); every other
+shape, and every CPU tensor, takes the plain matmul + fp32 softmax path, as
+the TPU build sends them to XLA.
 
 Shapes: q (B, Nq, H, D), k/v (B, Nk, H, D) → out (B, Nq, H, D).
 """

@@ -3,7 +3,8 @@
 The kernel (csrc/geglu.cu) replaces the Pallas TPU kernel
 `udifftext_tpu/ops/geglu.py` `_geglu_fwd_impl` / `_geglu_kernel`.
 `geglu_ff` launches it for CUDA tensors and runs the plain PyTorch version,
-`geglu_ff_ref`, for CPU tensors.
+`geglu_ff_ref`, for CPU tensors. It is differentiable through a
+`torch.autograd.Function` whose backward is `geglu_ff_bwd`, plain PyTorch.
 
 out = (h ⊙ gelu(g))·w2ᵀ + b2 with [h, g] = x·w1ᵀ + b1, the weights in
 PyTorch's Linear layout: w1 (2I, C), b1 (2I,), w2 (C, I), b2 (C,).
@@ -23,6 +24,8 @@ _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 CHUNK_BF16 = 64   # hidden units per tensor-core step: I % (64·splits) == 0
 CHUNK_F32 = 32    # hidden units per FMA step
 MAX_C = 2048      # widest C the register accumulator takes
+_INV_SQRT2 = 0.7071067811865476
+_INV_SQRT_2PI = 0.3989422804014327
 
 
 def _bf16_plan(m: int, c: int, inner: int, sms: int):
@@ -51,11 +54,65 @@ def geglu_ff_ref(x, w1, b1, w2, b2) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+def geglu_ff_bwd(x, w1, b1, w2, b2, g_out, needs=(True,) * 5):
+    """Gradients (dx, dw1, db1, dw2, db2) of the feed-forward, a port of the
+    JAX build's `_geglu_bwd`: h and g recomputed from one product in x's
+    dtype, exact-erf gelu′ in fp32, every product in x's dtype at the same
+    rounding points. `needs` says which gradients to compute (None for the
+    others)."""
+    dt = x.dtype
+    inner = w2.shape[1]
+    c = x.shape[-1]
+    w1c, w2c = w1.to(dt), w2.to(dt)
+    hg = x @ w1c.t() + b1.to(dt)
+    h, g = hg[..., :inner].float(), hg[..., inner:].float()
+    gelu_g = torch.nn.functional.gelu(g)
+    go = g_out.to(dt)
+    dw2 = db2 = dx = dw1 = db1 = None
+    if needs[3]:
+        act = (h * gelu_g).to(dt)
+        dw2 = (go.reshape(-1, c).t() @ act.reshape(-1, inner)).to(w2.dtype)
+    if needs[4]:
+        db2 = go.float().reshape(-1, c).sum(0).to(b2.dtype)
+    if needs[0] or needs[1] or needs[2]:
+        dact = (go @ w2c).float()
+        dgelu = (0.5 * (1.0 + torch.erf(g * _INV_SQRT2))
+                 + g * torch.exp(-0.5 * g * g) * _INV_SQRT_2PI)
+        dhg = torch.cat([dact * gelu_g, dact * h * dgelu], dim=-1).to(dt)
+        if needs[0]:
+            dx = (dhg @ w1c).to(x.dtype)
+        if needs[1]:
+            dw1 = (dhg.reshape(-1, 2 * inner).t() @ x.reshape(-1, c)).to(w1.dtype)
+        if needs[2]:
+            db1 = dhg.float().reshape(-1, 2 * inner).sum(0).to(b1.dtype)
+    return dx, dw1, db1, dw2, db2
+
+
+class _GegluFF(torch.autograd.Function):
+    """Forward: the kernel (CUDA) or the plain version (CPU). Backward: the
+    plain recompute of `geglu_ff_bwd` (the JAX build has no backward kernel
+    for GEGLU either)."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        if not x.is_cuda:
+            return geglu_ff_ref(x, w1, b1, w2, b2)
+        return _geglu_launch(x, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        return geglu_ff_bwd(*ctx.saved_tensors, g_out, ctx.needs_input_grad)
+
+
 def geglu_ff(x, w1, b1, w2, b2) -> torch.Tensor:
-    """x (..., C) → (..., C). CUDA tensors launch the kernel (or raise on
-    what it does not take); CPU tensors take the plain version."""
-    if not x.is_cuda:
-        return geglu_ff_ref(x, w1, b1, w2, b2)
+    """x (..., C) → (..., C), differentiable in every input. CUDA tensors
+    launch the kernel (or raise on what it does not take); CPU tensors take
+    the plain version."""
+    return _GegluFF.apply(x, w1, b1, w2, b2)
+
+
+def _geglu_launch(x, w1, b1, w2, b2) -> torch.Tensor:
     c = x.shape[-1]
     inner = w2.shape[1]
     ts = (x, w1, b1, w2, b2)

@@ -1,0 +1,114 @@
+"""The fine-tuning step on one device (port of
+`udifftext_tpu/parallel/train.py` without the mesh).
+
+  - Selective trainability: only UNet parameters whose name has a segment
+    containing one of `opt_keys` (t_attn, t_norm) train; `build_engine(...,
+    train=True)` marks them (requires_grad) and keeps them in fp32. Frozen
+    parameters get no gradient, no optimizer state and no update.
+  - AdamW (b1 0.9, b2 0.999, eps 1e-8, weight decay 0.01) with the LR set
+    before every update from the per-epoch ×0.95 schedule at the
+    optimizer-step count, as optax reads its schedule.
+  - Gradient accumulation: one backward per micro-batch summed into .grad,
+    divided by the micro-batch count before the update.
+  - EMA of the trainable parameters (LitEma warm-up decay), updated in
+    place after each update. The JAX build keeps an EMA of every parameter;
+    a frozen one's EMA is the parameter itself, so the port stores none.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Iterable, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from ..models.layers import name_has_key
+
+LossFn = Callable[[Any], Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
+
+TRAINABLE_TOP = "unet"  # only the UNet trains, as in the reference
+
+
+def trainable_mask(named_params: Iterable[Tuple[str, torch.Tensor]],
+                   opt_keys: Sequence[str]) -> Dict[str, bool]:
+    """name → True where the top-level module is the UNet and a segment of
+    the dotted name contains one of `opt_keys`."""
+    return {name: name.split(".")[0] == TRAINABLE_TOP and name_has_key(name, opt_keys)
+            for name, _ in named_params}
+
+
+def epoch_decay_schedule(base_lr: float, steps_per_epoch: int,
+                         decay: float = 0.95) -> Callable[[int], float]:
+    """lr(step) = base_lr · decay^(step // steps_per_epoch)."""
+
+    def schedule(step: int) -> float:
+        return base_lr * decay ** (step // max(steps_per_epoch, 1))
+
+    return schedule
+
+
+def make_optimizer(params: Iterable[torch.Tensor], base_lr: float = 5e-5) -> torch.optim.AdamW:
+    """AdamW over the given (trainable) parameters only."""
+    return torch.optim.AdamW(list(params), lr=base_lr, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=0.01)
+
+
+@torch.no_grad()
+def ema_update(ema: Dict[str, torch.Tensor], params: Dict[str, torch.Tensor], step: int,
+               decay: float = 0.9999) -> Dict[str, torch.Tensor]:
+    """In place: ema ← ema·d + p·(1 − d), d = min(decay, (1 + step)/(10 + step))."""
+    d = min(decay, (1.0 + step) / (10.0 + step))
+    for name, e in ema.items():
+        e.mul_(d).add_(params[name].detach() * (1.0 - d))
+    return ema
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The trainable parameters by name, their optimizer and LR schedule,
+    the optimizer-step count and the EMA (None without EMA)."""
+
+    params: Dict[str, nn.Parameter]
+    optimizer: torch.optim.Optimizer
+    schedule: Callable[[int], float]
+    step: int = 0
+    ema: Optional[Dict[str, torch.Tensor]] = None
+
+    @classmethod
+    def create(cls, model: nn.Module, base_lr: float = 5e-5, steps_per_epoch: int = 1000,
+               use_ema: bool = False) -> "TrainState":
+        """State over `model`'s parameters that require grad."""
+        params = {n: p for n, p in model.named_parameters() if p.requires_grad}
+        ema = {n: p.detach().clone() for n, p in params.items()} if use_ema else None
+        return cls(params, make_optimizer(params.values(), base_lr),
+                   epoch_decay_schedule(base_lr, steps_per_epoch), 0, ema)
+
+
+def train_step(state: TrainState, micro_batches: Sequence[Any], loss_fn: LossFn,
+               ema_decay: float = 0.9999) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One optimizer update from len(micro_batches) micro-batches: the
+    gradients averaged over them, one AdamW update, then the EMA. Returns the
+    loss and each aux component averaged over the micro-batches (detached,
+    on the device: nothing here waits for the device)."""
+    state.optimizer.zero_grad(set_to_none=True)
+    loss_sum = None
+    aux_sum: Dict[str, torch.Tensor] = {}
+    for mb in micro_batches:
+        loss, aux = loss_fn(mb)
+        loss.backward()
+        loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
+        for k, v in aux.items():
+            aux_sum[k] = v.detach() if k not in aux_sum else aux_sum[k] + v.detach()
+    n = len(micro_batches)
+    for p in state.params.values():
+        if p.grad is not None:
+            p.grad.div_(n)
+    lr = state.schedule(state.step)
+    for group in state.optimizer.param_groups:
+        group["lr"] = lr
+    state.optimizer.step()
+    if state.ema is not None:
+        ema_update(state.ema, state.params, state.step, ema_decay)
+    state.step += 1
+    return loss_sum / n, {k: v / n for k, v in aux_sum.items()}

@@ -1,7 +1,8 @@
 """Predictor for the demo and test flows (port of `udifftext_tpu/predict.py`).
 
 Holds the sampler settings, turns a batch's array fields into tensors on
-the engine's device, and runs `DiffusionEngine.sample`. The candidate-
+the engine's device, and runs `DiffusionEngine.sample` (with
+attend-and-excite and middle-step map capture when asked). The candidate-
 batched init-noise search is chosen per call: batched only while
 noise_iters·B stays within `noise_search_max_rows`, since the stacked
 candidates' UNet batch (and its captured maps) grows with it.
@@ -31,17 +32,14 @@ class Predictor:
         noise_search_batched: bool = False,
         noise_search_max_rows: int = 128,
     ):
-        if aae_enabled or detailed:
-            raise NotImplementedError(
-                "attend-and-excite (aae_enabled) and attention-map capture (detailed) "
-                "are not ported yet"
-            )
         if encprop_interval > 1:
             raise NotImplementedError("encoder-propagation sampling is not ported yet")
         self.engine = engine
         self.num_steps = int(num_steps)
         self.cfg_scale = float(cfg_scale)
         self.noise_iters = int(noise_iters)
+        self.aae_enabled = bool(aae_enabled)
+        self.detailed = bool(detailed)
         self.noise_search_batched = bool(noise_search_batched)
         self.noise_search_max_rows = int(noise_search_max_rows)
 
@@ -77,6 +75,6 @@ class Predictor:
         batched = self.noise_search_batched and self.noise_iters * b <= self.noise_search_max_rows
         return self.engine.sample(
             arr, generator, num_steps=self.num_steps, cfg_scale=self.cfg_scale,
-            noise_iters=self.noise_iters, noise_search_batched=batched,
-            posterior_eps=posterior_eps, noise=noise,
+            noise_iters=self.noise_iters, aae_enabled=self.aae_enabled, detailed=self.detailed,
+            noise_search_batched=batched, posterior_eps=posterior_eps, noise=noise,
         )
