@@ -14,6 +14,11 @@ each printed on its own line:
 3b. the flash backward kernel against its plain version at the training
    and attend-and-excite shapes and in fp32: max error of dq, dk, dv each
    against a tolerance scaled to that gradient's magnitude, and both times;
+3c. the four LayerNorm-fused kernels (ln_gemm, ln_gemm3, fused_cross_attention,
+   geglu_ff_ln) against their plain versions on seeded random tensors at the
+   ds1 and ds2 widths, B=2 and B=32, bf16, and one fp32 case each (ln_gemm
+   also at (2, 128, 1280) → 3840), and the gradients of each autograd
+   Function against the plain version's autograd;
 4. one full-width SpatialTransformer at ds1 (320 channels, 64² latent) in
    bf16 on the GPU against the same block in fp32 on the CPU;
 4b. that block's gradients (input, t_attn/t_norm weights), bf16 GPU with
@@ -32,13 +37,28 @@ each printed on its own line:
    s per step, samples/s, peak device memory, the VAE encodes' share;
 7. the demo flow of phase 5 with attend-and-excite and map capture
    (aae_enabled, detailed): output, local losses, middle-step maps, and
-   flash-backward launches; s/sample.
+   flash-backward launches; s/sample;
+8. the glue-fusion probe (udifftext_tpu_torch.scripts.glue_fusion_probe) through
+   its entry function at batch 16 (CFG-doubled B=32), K=20, every section's
+   time printed; then a full-width BasicTransformerBlock with
+   fuse_qkv=True, fuse_glue="auto" against the unfused block on the same
+   seeded weights with hoisted K/V (ds1 and ds2) and against the fp32 CPU
+   block (ds1), its launch counts per forward, map capture, and one backward
+   (input and t_attn/t_norm gradients against the unfused block's).
 
-Each path (demo, AAE, training) runs with the launch counts set to 0 just
-before it and read just after. Any failure exits non-zero. The
+Beside every kernel's time stand its plain version's, its bound (the least
+time the card could take: the larger of bytes moved once over 3.35 TB/s and
+operations over 989 TFLOP/s for bf16, 67 TFLOP/s for fp32) and, for flash
+attention, the time of torch's scaled_dot_product_attention on the same
+inputs, which the port itself never calls.
+
+Each path (demo, AAE, training, glue probe) runs with the launch counts set
+to 0 just before it and read just after. Any failure exits non-zero. The
 second-to-last line is the kernels' JSON record: each kernel's `launches`
-counts the training path (named by `launches_path`), `launches_by_path`
-holds every path's count. The last line is {"ok": true, "device": {...}}.
+counts the path named by its `launches_path` (training for the kernels the
+UNet runs, the glue probe for the four that only the fused block runs),
+`launches_by_path` holds every path's count. The last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -90,6 +110,36 @@ def grad_tol(ref) -> float:
     import torch
 
     return (2**-7 if ref.dtype == torch.bfloat16 else 1e-5) * float(ref.float().abs().max())
+
+
+HBM_BYTES_PER_S = 3.35e12                          # H100 SXM
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}       # dense tensor cores; fp32 FMAs
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound_ms(flops: float, moved: int, dtype) -> tuple:
+    """(ms, "bytes" | "operations"): the least time the card could take for
+    `flops` operations of `dtype` and `moved` bytes (each input read once,
+    each output written once)."""
+    import torch
+
+    ops = flops / PEAK_FLOPS["bf16" if dtype == torch.bfloat16 else "fp32"] * 1e3
+    mem = moved / HBM_BYTES_PER_S * 1e3
+    return (ops, "operations") if ops >= mem else (mem, "bytes")
+
+
+def record(records: dict, key: str, label: str, err: float, ms: float, plain_ms: float,
+           bound: tuple, library_ms=None) -> str:
+    """Keep the first case of each kernel for the JSON line; returns the
+    bound and library part of the case's log line."""
+    records.setdefault(key, {"shape": label, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                             "bound_ms": bound[0], "bound_by": bound[1],
+                             "library_ms": library_ms})
+    lib = "" if library_ms is None else f", library call {library_ms:.3f} ms"
+    return f"bound {bound[0]:.4f} ms by {bound[1]}{lib}"
 
 
 def rel_l2(got, want) -> float:
@@ -163,7 +213,7 @@ def main() -> None:
         build_engine,
         randomize_parameters,
     )
-    from udifftext_tpu_torch.models.attention import SpatialTransformer
+    from udifftext_tpu_torch.models.attention import BasicTransformerBlock, SpatialTransformer
     from udifftext_tpu_torch.models.layers import cast_weights
     from udifftext_tpu_torch.ops import _build
     from udifftext_tpu_torch.ops.flash_attention import (
@@ -172,11 +222,22 @@ def main() -> None:
         flash_attention_bwd_ref,
         flash_attention_ref,
     )
-    from udifftext_tpu_torch.ops.geglu import geglu_ff, geglu_ff_ref
+    from udifftext_tpu_torch.ops.cross_attention import (
+        fused_cross_attention,
+        fused_cross_attention_ref,
+    )
+    from udifftext_tpu_torch.ops.geglu import geglu_ff, geglu_ff_ln, geglu_ff_ln_ref, geglu_ff_ref
+    from udifftext_tpu_torch.ops.ln_gemm import ln_gemm, ln_gemm3, ln_gemm3_ref, ln_gemm_ref
     from udifftext_tpu_torch.predict import Predictor
+    from udifftext_tpu_torch.scripts import glue_fusion_probe
     from udifftext_tpu_torch.train import train
 
-    kernel_fns = (flash_attention, flash_attention_bwd, geglu_ff)
+    kernel_fns = (flash_attention, flash_attention_bwd, geglu_ff, ln_gemm, ln_gemm3,
+                  fused_cross_attention, geglu_ff_ln)
+
+    def expected(**launched) -> dict:
+        """A path's launch counts: the named kernels, and 0 for every other."""
+        return {**{f.__name__: 0 for f in kernel_fns}, **launched}
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -197,7 +258,7 @@ def main() -> None:
     kernel = ""
     for line in _build.library_path().with_suffix(".log").read_text().splitlines():
         m = re.search(r"entry function '\w*?((?:flash_fwd|flash_bwd_dq|flash_bwd_dkdv|geglu_wmma"
-                      r"|geglu_simt|geglu_reduce)_kernel)(\w*)'", line)
+                      r"|geglu_simt|geglu_reduce|ln_gemm|cross_attn)_kernel)(\w*)'", line)
         if m:
             kernel = m.group(1) + m.group(2).replace("__nv_bfloat16", "bf16")
         elif "spill stores" in line or "registers" in line:
@@ -225,14 +286,18 @@ def main() -> None:
         tol = bf16_tol(ref) if dtype == torch.bfloat16 else 1e-5 * max(1.0, float(ref.abs().max()))
         ms = time_ms(lambda: flash_attention(q, k, v))
         plain_ms = time_ms(lambda: flash_attention_ref(q, k, v), reps=5)
+        # the one PyTorch call for the same function, on (B, H, N, D) views of the same tensors
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt))
         flops = 4 * b * h * n * n * 64
+        note = record(records, "flash_attention", label, err, ms, plain_ms,
+                      bound_ms(flops, nbytes(q, k, v, out, lse), dtype), lib_ms)
         log(f"[flash] {label}: max_abs_err {err:.3e} (tol {tol:.3e}), lse err {lse_err:.3e} "
             f"(tol 1e-4); kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
-            f"plain {plain_ms:.3f} ms")
+            f"plain {plain_ms:.3f} ms, {note}")
         if not (err <= tol and lse_err <= 1e-4):
             fail(f"flash {label} disagrees with its plain version")
-        records.setdefault("flash_attention", (label, err, ms, plain_ms))
-        del q, k, v, out, ref, lse, ref_lse
+        del q, k, v, out, ref, lse, ref_lse, qt, kt, vt
 
     geglu_cases = [  # (label, rows, C, dtype): ds1/ds2/ds4 feed-forwards
         ("ds1 B=2", 2 * 4096, 320, torch.bfloat16), ("ds2 B=2", 2 * 1024, 640, torch.bfloat16),
@@ -252,11 +317,12 @@ def main() -> None:
         ms = time_ms(lambda: geglu_ff(x, w1, b1, w2, b2))
         plain_ms = time_ms(lambda: geglu_ff_ref(x, w1, b1, w2, b2), reps=5)
         flops = 2 * m * 3 * c * 4 * c
+        note = record(records, "geglu_ff", label, err, ms, plain_ms,
+                      bound_ms(flops, nbytes(x, w1, b1, w2, b2, out), dtype))
         log(f"[geglu] {label} (M={m}, C={c}): max_abs_err {err:.3e} (tol {tol:.3e}); "
-            f"kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms")
+            f"kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, {note}")
         if not err <= tol:
             fail(f"geglu {label} disagrees with its plain version")
-        records.setdefault("geglu_ff", (label, err, ms, plain_ms))
         del x, w1, b1, w2, b2, out, ref
 
     # 3b. the flash backward kernel against its plain version
@@ -279,13 +345,146 @@ def main() -> None:
         ms = time_ms(lambda: flash_attention_bwd(q, k, v, out, lse, do))
         plain_ms = time_ms(lambda: flash_attention_bwd_ref(q, k, v, out, lse, do), reps=3)
         flops = 10 * b * h * n * n * 64  # 5 products of N×N×d (the TPU kernel's count)
+        # the library's backward of the same function: autograd through torch's fused attention
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+        lib_out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)
+        dot = do.transpose(1, 2)
+        lib_ms = time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                                     retain_graph=True), reps=5)
+        moved = nbytes(q, k, v, out, do, lse) + nbytes(q, k, v)  # dq, dk, dv written
+        note = record(records, "flash_attention_bwd", label, max(errs), ms, plain_ms,
+                      bound_ms(flops, moved, dtype), lib_ms)
         log(f"[flash_bwd] {label}: max_abs_err dq/dk/dv "
             f"{' / '.join(f'{e:.3e}' for e in errs)} (tol {' / '.join(f'{t:.3e}' for t in tols)}); "
-            f"kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms")
+            f"kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, {note}")
         if not all(e <= t for e, t in zip(errs, tols)):
             fail(f"flash backward {label} disagrees with its plain version")
-        records.setdefault("flash_attention_bwd", (label, max(errs), ms, plain_ms))
-        del q, k, v, do, out, lse
+        del q, k, v, do, out, lse, qt, kt, vt, lib_out, dot
+        torch.cuda.empty_cache()
+
+    # 3c. the LayerNorm-fused kernels against their plain versions
+    def tol_of(ref):
+        return bf16_tol(ref) if ref.dtype == torch.bfloat16 else 1e-5 * max(
+            1.0, float(ref.abs().max()))
+
+    def max_err(got, ref):
+        return float((got.float() - ref.float()).abs().max())
+
+    def ln_params(c):
+        return (1.0 + 0.1 * randn(c, dtype=torch.float32), 0.1 * randn(c, dtype=torch.float32))
+
+    def check_grads(name, fn, ref_fn, ins, outs_like):
+        """Gradients through the wrapper's autograd Function against the plain
+        version's autograd, every input a leaf. Tolerance: four bf16 ulps of
+        each gradient's largest entry when x is bf16 (the feed-forward's
+        backward rounds its products to bf16 where the plain version's
+        autograd keeps fp32; the fp32 LayerNorm parameters' gradients inherit
+        that), 1e-4 of it in fp32."""
+        leaves = [t.detach().clone().requires_grad_(True) for t in ins]
+        got = torch.autograd.grad(fn(*leaves), leaves, outs_like)
+        want = torch.autograd.grad(ref_fn(*leaves), leaves, outs_like)
+        torch.cuda.synchronize()
+        errs = [max_err(g_, w_) for g_, w_ in zip(got, want)]
+        rel = 2**-6 if ins[0].dtype == torch.bfloat16 else 1e-4
+        tols = [rel * float(w_.float().abs().max()) for w_ in want]
+        log(f"[{name}] gradients of {len(leaves)} inputs through the autograd Function vs the "
+            f"plain version's autograd: worst error/tolerance "
+            f"{max(e / t for e, t in zip(errs, tols)):.3f}")
+        if not all(e <= t and g_.dtype == w_.dtype for e, t, g_, w_ in zip(errs, tols, got, want)):
+            fail(f"{name} gradients disagree with the plain version's autograd")
+
+    glue_cases = [  # (label, B, N, C, dtype); the probe's shapes first
+        ("ds1 B=32", 32, 4096, 320, torch.bfloat16), ("ds2 B=32", 32, 1024, 640, torch.bfloat16),
+        ("ds1 B=2", 2, 4096, 320, torch.bfloat16), ("ds2 B=2", 2, 1024, 640, torch.bfloat16),
+        ("ds2 B=2 fp32", 2, 1024, 640, torch.float32),
+        ("(2, 128, 1280)", 2, 128, 1280, torch.bfloat16),
+    ]
+    for label, b, n, c, dtype in glue_cases:
+        heads, m = c // 64, b * n
+        x = randn(b, n, c, dtype=dtype)
+        ln_s, ln_b = ln_params(c)
+        ws = [randn(c, c, dtype=dtype, scale=c**-0.5) for _ in range(3)]
+        w3 = torch.cat(ws, dim=0)
+
+        out = ln_gemm(x, ln_s, ln_b, w3)
+        ref = ln_gemm_ref(x, ln_s, ln_b, w3)
+        torch.cuda.synchronize()
+        err, tol = max_err(out, ref), tol_of(ref)
+        ms = time_ms(lambda: ln_gemm(x, ln_s, ln_b, w3))
+        plain_ms = time_ms(lambda: ln_gemm_ref(x, ln_s, ln_b, w3), reps=5)
+        flops = 2 * m * c * 3 * c
+        note = record(records, "ln_gemm", label, err, ms, plain_ms,
+                      bound_ms(flops, nbytes(x, ln_s, ln_b, w3, out), dtype))
+        log(f"[ln_gemm] {label} ({c}->{3 * c}): max_abs_err {err:.3e} (tol {tol:.3e}); kernel "
+            f"{ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, {note}")
+        if not err <= tol:
+            fail(f"ln_gemm {label} disagrees with its plain version")
+        del out, ref
+        if c == 1280:  # the single-output kernel's own test shape; the block has no ds4 path
+            continue
+
+        outs = ln_gemm3(x, ln_s, ln_b, *ws)
+        refs = ln_gemm3_ref(x, ln_s, ln_b, *ws)
+        torch.cuda.synchronize()
+        err = max(max_err(o_, r_) for o_, r_ in zip(outs, refs))
+        tol = min(tol_of(r_) for r_ in refs)
+        ms = time_ms(lambda: ln_gemm3(x, ln_s, ln_b, *ws))
+        plain_ms = time_ms(lambda: ln_gemm3_ref(x, ln_s, ln_b, *ws), reps=5)
+        note = record(records, "ln_gemm3", label, err, ms, plain_ms,
+                      bound_ms(flops, nbytes(x, ln_s, ln_b, *ws, *outs), dtype))
+        log(f"[ln_gemm3] {label} (3x {c}->{c}): max_abs_err {err:.3e} (tol {tol:.3e}); kernel "
+            f"{ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, {note}")
+        if not (err <= tol and all(o_.is_contiguous() for o_ in outs)):
+            fail(f"ln_gemm3 {label} disagrees with its plain version")
+        del outs, refs
+
+        k_, v_ = (randn(b, 12, heads, 64, dtype=dtype) for _ in range(2))
+        bo = randn(c, dtype=dtype, scale=0.1)
+        ca_in = (x, ln_s, ln_b, ws[0], k_, v_, ws[1], bo)
+        out = fused_cross_attention(*ca_in, heads)
+        ref = fused_cross_attention_ref(*ca_in, heads)
+        torch.cuda.synchronize()
+        err, tol = max_err(out, ref), tol_of(ref)
+        ms = time_ms(lambda: fused_cross_attention(*ca_in, heads))
+        plain_ms = time_ms(lambda: fused_cross_attention_ref(*ca_in, heads), reps=5)
+        flops = 2 * m * c * (2 * c + 2 * 12)
+        note = record(records, "fused_cross_attention", label, err, ms, plain_ms,
+                      bound_ms(flops, nbytes(*ca_in, out), dtype))
+        log(f"[cross_attention] {label} (L=12, {heads} heads): max_abs_err {err:.3e} "
+            f"(tol {tol:.3e}); kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+            f"{plain_ms:.3f} ms, {note}")
+        if not err <= tol:
+            fail(f"fused_cross_attention {label} disagrees with its plain version")
+        del out, ref
+
+        w1, b1 = randn(8 * c, c, dtype=dtype, scale=c**-0.5), randn(8 * c, dtype=dtype, scale=0.1)
+        w2 = randn(c, 4 * c, dtype=dtype, scale=(4 * c) ** -0.5)
+        b2 = randn(c, dtype=dtype, scale=0.1)
+        ff_in = (x, ln_s, ln_b, w1, b1, w2, b2)
+        out = geglu_ff_ln(*ff_in)
+        ref = geglu_ff_ln_ref(*ff_in)
+        torch.cuda.synchronize()
+        err, tol = max_err(out, ref), tol_of(ref)
+        ms = time_ms(lambda: geglu_ff_ln(*ff_in))
+        plain_ms = time_ms(lambda: geglu_ff_ln_ref(*ff_in), reps=3)
+        flops = 2 * m * 3 * c * 4 * c
+        note = record(records, "geglu_ff_ln", label, err, ms, plain_ms,
+                      bound_ms(flops, nbytes(*ff_in, out), dtype))
+        log(f"[geglu_ln] {label} (M={m}, C={c}): max_abs_err {err:.3e} (tol {tol:.3e}); kernel "
+            f"{ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, {note}")
+        if not err <= tol:
+            fail(f"geglu_ff_ln {label} disagrees with its plain version")
+        del out, ref
+
+        if label == "ds2 B=2":  # gradients at one shape
+            g1, g3 = randn(b, n, c), randn(b, n, 3 * c)
+            check_grads("ln_gemm", ln_gemm, ln_gemm_ref, (x, ln_s, ln_b, w3), g3)
+            check_grads("ln_gemm3", ln_gemm3, ln_gemm3_ref, (x, ln_s, ln_b, *ws), [g1, g1, g1])
+            check_grads("cross_attention", lambda *a: fused_cross_attention(*a, heads),
+                        lambda *a: fused_cross_attention_ref(*a, heads), ca_in, g1)
+            check_grads("geglu_ln", geglu_ff_ln, geglu_ff_ln_ref, ff_in, g1)
+            del g1, g3
+        del x, ws, w3, k_, v_, bo, ca_in, w1, b1, w2, b2, ff_in
         torch.cuda.empty_cache()
 
     # 4. one full-width ds1 transformer block, GPU bf16 against CPU fp32
@@ -376,7 +575,7 @@ def main() -> None:
                 and float(images.max()) <= 1.0):
             fail("output is not finite in [0, 1]")
         evals = 2 + 50  # two batched search evals, then the 50 steps
-        want = {"flash_attention": evals * 10, "flash_attention_bwd": 0, "geglu_ff": evals * 15}
+        want = expected(flash_attention=evals * 10, geglu_ff=evals * 15)
         if launches != want:
             fail(f"kernel launches {launches}, expected {want} (ds1+ds2 self-attention; "
                  "ds1/ds2/ds4 feed-forwards; no backward when sampling)")
@@ -416,9 +615,9 @@ def main() -> None:
     if tuple(aux["inters"].shape) != (50, 512, 512, 3):
         fail(f"AAE intermediates {tuple(aux['inters'].shape)}")
     evals = 2 + 50 + n_aae
-    if not (n_aae >= 50 and launches == {"flash_attention": evals * 10,
-                                         "flash_attention_bwd": n_aae * 10,
-                                         "geglu_ff": evals * 15}):
+    if not (n_aae >= 50 and launches == expected(flash_attention=evals * 10,
+                                                 flash_attention_bwd=n_aae * 10,
+                                                 geglu_ff=evals * 15)):
         fail(f"AAE launches {launches}: expected ≥ 50 gradient evaluations, each with 10 "
              "flash forwards and backwards and 15 GEGLU forwards, besides the 52 sampling evals")
     del bundle, predictor, images, aux, maps
@@ -479,8 +678,8 @@ def main() -> None:
     # (input block 1's self-attention sits before every trainable
     # parameter)
     micro = steps * accum
-    want = {"flash_attention": micro * 10, "flash_attention_bwd": micro * 9,
-            "geglu_ff": micro * 15}
+    want = expected(flash_attention=micro * 10, flash_attention_bwd=micro * 9,
+                    geglu_ff=micro * 15)
     if launches != want:
         fail(f"training launches {launches}, predicted {want}")
     mb = {k: torch.as_tensor(v).to(dev) for k, v in batches.batches[0].items()}
@@ -492,20 +691,120 @@ def main() -> None:
         f"{accum * enc_ms / 1e3 / step_s[-1]:.3f} of a step")
     del engine, bundle, state, frozen, trained, batches, mb
 
+    # 8. the glue-fusion probe, and the fused block against the unfused one
+    calls = 1 + 5 * 20  # per label: one warm-up, then 5 timed runs of K=20
+    reset(*kernel_fns)
+    probe = glue_fusion_probe.run(batch=16, reps=20, device=str(dev))
+    torch.cuda.synchronize()
+    launches = by_path["glue_probe"] = counts(*kernel_fns)
+    # per shape: ln_gemm in section F; ln_gemm3 in F and the fused block; the
+    # t_attn kernel in G and the fused block; geglu_ff_ln in the fused block,
+    # geglu_ff in the two unfused ones; flash in A (twice) and all three blocks
+    want = expected(flash_attention=2 * 5 * calls, geglu_ff=2 * 2 * calls, ln_gemm=2 * calls,
+                    ln_gemm3=2 * 2 * calls, fused_cross_attention=2 * 2 * calls,
+                    geglu_ff_ln=2 * calls)
+    log(f"[glue_probe] {len(probe)} labels at B=32, K=20; launches {launches}")
+    if launches != want:
+        fail(f"glue probe launches {launches}, expected {want}")
+    if len(probe) != 28 or not all(np.isfinite(v) and v > 0 for v in probe.values()):
+        fail(f"glue probe returned {len(probe)} labels of 28, or a time that is not positive")
+
+    train_keys = ("t_attn", "t_norm")
+    fused_fns = (ln_gemm3, fused_cross_attention, geglu_ff_ln, flash_attention, geglu_ff)
+    for name, n, c in (("ds1", 4096, 320), ("ds2", 1024, 640)):
+        heads = c // 64
+        plain_cpu = randomize_parameters(BasicTransformerBlock(heads, 64, 2048), 3).eval()
+        plain = cast_weights(BasicTransformerBlock(heads, 64, 2048), torch.bfloat16,
+                             keep_fp32=train_keys).to(dev).eval()
+        fused = cast_weights(BasicTransformerBlock(heads, 64, 2048, fuse_qkv=True,
+                                                   fuse_glue="auto"), torch.bfloat16,
+                             keep_fp32=train_keys).to(dev).eval()
+        plain.load_state_dict(plain_cpu.state_dict())
+        fused.load_state_dict(plain_cpu.state_dict())
+        rs8 = np.random.RandomState(8)
+        xb = torch.from_numpy(rs8.standard_normal((2, n, c)).astype(np.float32))
+        ctx = torch.from_numpy(rs8.standard_normal((2, 12, 2048)).astype(np.float32))
+        r_out = torch.from_numpy(rs8.standard_normal((2, n, c)).astype(np.float32)).to(dev)
+        x16, ctx16 = xb.to(dev, torch.bfloat16), ctx.to(dev, torch.bfloat16)
+        with torch.no_grad():
+            kv = {"t": fused.t_attn.project_kv(ctx16)}
+            reset(*fused_fns)
+            got, no_map = fused(x16, ctx16, None, False, kv)
+            per_fwd = counts(*fused_fns)
+            want16, _ = plain(x16, ctx16, None, False, kv)
+            reset(*fused_fns)
+            _, t_map = fused(x16, ctx16, None, True, kv)
+            with_map = counts(*fused_fns)
+            _, want_map = plain(x16, ctx16, None, True, kv)
+        torch.cuda.synchronize()
+        rel = rel_l2(got, want16)
+        map_err = float((t_map - want_map).abs().max())
+        log(f"[fused-block] {name} BasicTransformerBlock(fuse_qkv=True, fuse_glue='auto') vs "
+            f"(False, 'off'), bf16, hoisted K/V: relative L2 {rel:.3e} (tol 2e-2: bf16 rounds at "
+            f"other points in the two); launches per forward {per_fwd}; with capture_map "
+            f"{with_map}, map {tuple(t_map.shape)} max err {map_err:.3e} (tol 2e-2)")
+        if not (torch.isfinite(got).all() and rel <= 2e-2 and no_map is None):
+            fail(f"the fused {name} block disagrees with the unfused one")
+        if per_fwd != {"ln_gemm3": 1, "fused_cross_attention": 1, "geglu_ff_ln": 1,
+                       "flash_attention": 1, "geglu_ff": 0}:
+            fail(f"fused {name} block launches {per_fwd}")
+        if (with_map["fused_cross_attention"] != 0 or tuple(t_map.shape) != (2, heads, n, 12)
+                or map_err > 2e-2):
+            fail(f"fused {name} block with capture_map: launches {with_map}, map "
+                 f"{tuple(t_map.shape)}, error {map_err}")
+        if name == "ds1":
+            with torch.no_grad():
+                want32, _ = plain_cpu(xb, ctx, None, False, {"t": plain_cpu.t_attn.project_kv(ctx)})
+            rel = rel_l2(got, want32)
+            log(f"[fused-block] ds1 fused block bf16 GPU vs fp32 CPU: relative L2 {rel:.3e} "
+                f"(tol 2e-2)")
+            if not rel <= 2e-2:
+                fail("the fused ds1 block disagrees with its fp32 CPU run")
+
+        # one backward through the fused block against the unfused one's
+        grads = {}
+        for key, blk in (("fused", fused), ("plain", plain)):
+            for pn, prm in blk.named_parameters():
+                prm.requires_grad_(any(k in pn for k in train_keys))
+                prm.grad = None
+            x_in = x16.clone().requires_grad_(True)
+            out, _ = blk(x_in, ctx16, None, False, {"t": blk.t_attn.project_kv(ctx16)})
+            (out.float() * r_out).sum().backward()
+            grads[key] = {"input": x_in.grad, **{pn: p.grad for pn, p in blk.named_parameters()
+                                                 if p.requires_grad}}
+        torch.cuda.synchronize()
+        errs = {k: rel_l2(grads["fused"][k], grads["plain"][k]) for k in grads["plain"]}
+        worst = max(errs, key=errs.get)
+        log(f"[fused-block] {name} gradients, fused vs unfused: relative L2 input "
+            f"{errs['input']:.3e}, worst of {len(errs) - 1} t_attn/t_norm weights "
+            f"{errs[worst]:.3e} ({worst}) (tol 3e-2)")
+        if not (len(errs) == 8 and all(e <= 3e-2 for e in errs.values())
+                and all(torch.isfinite(g_).all() for g_ in grads["fused"].values())):
+            fail(f"the fused {name} block's gradients disagree with the unfused block's")
+        del plain_cpu, plain, fused, grads
+        torch.cuda.empty_cache()
+
     kernels = []
-    for name, src, replaces, key in (
+    for name, src, replaces, key, path in (
         ("flash_attention_fwd", "udifftext_tpu_torch/csrc/flash_attention.cu",
-         "udifftext_tpu/ops/flash_attention.py:41", "flash_attention"),
+         "udifftext_tpu/ops/flash_attention.py:41", "flash_attention", "train"),
         ("flash_attention_bwd", "udifftext_tpu_torch/csrc/flash_attention_bwd.cu",
-         "udifftext_tpu/ops/flash_attention.py:181", "flash_attention_bwd"),
+         "udifftext_tpu/ops/flash_attention.py:181", "flash_attention_bwd", "train"),
         ("geglu_ff", "udifftext_tpu_torch/csrc/geglu.cu", "udifftext_tpu/ops/geglu.py:105",
-         "geglu_ff"),
+         "geglu_ff", "train"),
+        ("ln_gemm", "udifftext_tpu_torch/csrc/ln_gemm.cu", "udifftext_tpu/ops/ln_gemm.py:35",
+         "ln_gemm", "glue_probe"),
+        ("ln_gemm3", "udifftext_tpu_torch/csrc/ln_gemm.cu", "udifftext_tpu/ops/ln_gemm.py:149",
+         "ln_gemm3", "glue_probe"),
+        ("fused_cross_attention", "udifftext_tpu_torch/csrc/cross_attention.cu",
+         "udifftext_tpu/ops/cross_attention.py:36", "fused_cross_attention", "glue_probe"),
+        ("geglu_ff_ln", "udifftext_tpu_torch/csrc/geglu.cu", "udifftext_tpu/ops/geglu.py:55",
+         "geglu_ff_ln", "glue_probe"),
     ):
-        label, err, ms, plain_ms = records[key]
+        if by_path[path][key] < 1:
+            fail(f"{name} was launched no time on the {path} path")
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": by_path["train"][key], "launches_path": "train",
-                        "max_abs_err": err,
-                        "ms": ms, "plain_ms": plain_ms, "shape": label,
+                        "launches": by_path[path][key], "launches_path": path, **records[key],
                         "launches_by_path": {p_: c_[key] for p_, c_ in by_path.items()}})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

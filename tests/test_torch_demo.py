@@ -8,6 +8,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 import yaml
 from PIL import Image
 
@@ -79,6 +80,11 @@ def demo_dir(tmp_path, monkeypatch):
 
 def test_demo_cli_one_shot(demo_dir):
     args = ["--image", "in.png", "--mask", "mask.png", "--text", "ab", "--out", "out.png"]
+    if not torch.cuda.is_available():  # the default device is the GPU: no silent CPU run
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            demo.main(args)
+        assert not (demo_dir / "out.png").exists()
+    args += ["--device", "cpu"]
     demo.main(args)
     out = np.asarray(Image.open(demo_dir / "out.png"))
     assert out.shape == (32, 32, 3) and out.dtype == np.uint8 and out.std() > 0

@@ -10,6 +10,7 @@ the JAX package."""
 
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -41,7 +42,8 @@ def engines():
     cfg = U.tiny_model_cfg()
     je = build_diffusion_engine(cfg, unet_dtype=jnp.float32).engine
     params = U.engine_params(je, seed=11)
-    pe = U.load_port(build_engine(cfg, torch.float32).engine, convert.engine_from_jax(params))
+    pe = U.load_port(build_engine(cfg, torch.float32, "cpu").engine,
+                     convert.engine_from_jax(params))
     return je, params, pe
 
 
@@ -146,15 +148,15 @@ def test_unported_options_raise(engines):
     cfg = U.tiny_model_cfg()
     cfg["network_config"]["params"]["ctrl_channels"] = 3
     with pytest.raises(NotImplementedError, match="ctrl"):
-        build_engine(cfg, torch.float32)
+        build_engine(cfg, torch.float32, "cpu")
     cfg = U.tiny_model_cfg()
     cfg["conditioner_config"]["params"]["emb_models"].pop(1)
     with pytest.raises(NotImplementedError, match="embedder graph"):
-        build_engine(cfg, torch.float32)
+        build_engine(cfg, torch.float32, "cpu")
     cfg = U.tiny_model_cfg()
     cfg["loss_fn_config"]["params"]["ocr_enabled"] = True
     with pytest.raises(NotImplementedError, match="OCR"):
-        build_engine(cfg, torch.float32, train=True)
+        build_engine(cfg, torch.float32, "cpu", train=True)
 
 
 def test_shipped_graph_dict_equals_yaml():
@@ -163,14 +165,16 @@ def test_shipped_graph_dict_equals_yaml():
 
 
 _NO_JAX_SCRIPT = r"""
-import json, sys
-import numpy as np, torch
+import json, os, sys
+import numpy as np, torch, yaml
+from PIL import Image
 import udifftext_tpu_torch
-from udifftext_tpu_torch import demo, predict, train
+from udifftext_tpu_torch import config, demo, predict, train
 from udifftext_tpu_torch.builders import build_engine, randomize_parameters
 from udifftext_tpu_torch.parallel import train as parallel_train
+from udifftext_tpu_torch.scripts import glue_fusion_probe
 from udifftext_tpu_torch.utils import convert, logger
-bundle = build_engine(json.loads(sys.argv[1]), torch.float32, train=True)
+bundle = build_engine(json.loads(sys.argv[1]), torch.float32, "cpu", train=True)
 randomize_parameters(bundle.engine, 0)
 batch = demo.build_batch(np.zeros((40, 40, 3), np.uint8), np.full((40, 40), 255, np.uint8),
                          "ab", 32, 32)
@@ -185,6 +189,22 @@ batch["seg"] = np.zeros((1, 32, 32, 12), np.float32)
 state = train.train({"lightning": {"max_epochs": 1}, "log_dir": sys.argv[2]}, [batch], bundle,
                     seed=0)
 assert state.step == 1
+glue_fusion_probe.run(batch=1, reps=1, device="cpu", shapes=(("tiny", 8, 64),), ctx_dim=16,
+                      dim_head=32, dtype=torch.float32, runs=1)
+# the demo CLI end to end: it reads its YAML through the port's own config module
+os.chdir(sys.argv[2])
+os.makedirs("configs")
+with open("configs/tiny.yaml", "w") as f:
+    yaml.safe_dump({"model": {"params": json.loads(sys.argv[1])}}, f)
+with open("configs/demo.yaml", "w") as f:
+    yaml.safe_dump({"model_cfg_path": "./configs/tiny.yaml", "load_ckpt_path": "./none.ckpt",
+                    "H": 32, "W": 32, "noise_iters": 2, "steps": 2, "bf16": False}, f)
+assert config.load_config("configs/demo.yaml").steps == 2
+Image.fromarray(np.zeros((40, 40, 3), np.uint8)).save("in.png")
+Image.fromarray(np.full((40, 40), 255, np.uint8)).save("mask.png")
+demo.main(["--image", "in.png", "--mask", "mask.png", "--text", "ab", "--out", "out.png",
+           "--device", "cpu"])
+assert os.path.exists("out.png")
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "udifftext_tpu"))
 print(json.dumps(bad))
@@ -192,8 +212,9 @@ print(json.dumps(bad))
 
 
 def test_port_never_imports_jax(tmp_path):
-    """Sampling (plain and AAE) and one training step in a fresh process
-    leave jax, flax and the JAX package out of sys.modules."""
+    """Sampling (plain and AAE), one training step, the glue-fusion probe and
+    the demo CLI in a fresh process leave jax, flax and the JAX package out
+    of sys.modules."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)
     res = subprocess.run(
@@ -202,3 +223,44 @@ def test_port_never_imports_jax(tmp_path):
     )
     assert res.returncode == 0, res.stderr[-3000:]
     assert json.loads(res.stdout.strip().splitlines()[-1]) == []
+
+
+def test_port_sources_name_no_jax_package():
+    """No source of the port, nor the GPU smoke script, imports jax, flax or
+    the JAX package `udifftext_tpu` (the port's own package name starts with
+    it, so the match ends at a word boundary)."""
+    pat = re.compile(r"^\s*(?:import|from)\s+(?:udifftext_tpu|jax|jaxlib|flax)\b(?!_)", re.M)
+    files = sorted((REPO / "udifftext_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 30
+    hits = [f"{f.relative_to(REPO)}: {m.group(0).strip()}"
+            for f in files for m in pat.finditer(f.read_text())]
+    assert hits == []
+    assert pat.search("from udifftext_tpu.config import load_config")
+    assert pat.search("    import jax.numpy as jnp") and pat.search("import udifftext_tpu")
+    assert not pat.search("from udifftext_tpu_torch.config import load_config")
+
+
+def test_config_reader_matches_the_jax_package():
+    from udifftext_tpu import config as jax_config
+    from udifftext_tpu_torch import config
+
+    path = str(REPO / "configs" / "demo.yaml")
+    got, want = config.load_config(path), jax_config.load_config(path)
+    assert got == want and isinstance(got, config.ConfigNode)
+    node = config.ConfigNode.wrap({"a": {"b": [1, {"c": 2}]}, "d": "x"})
+    assert node.a.b[1].c == 2 and node.d == "x" and node.get("e", 3) == 3
+    node.e = 4
+    assert node["e"] == 4
+    with pytest.raises(AttributeError):
+        node.missing
+
+
+def test_build_engine_defaults_to_the_gpu():
+    """No silent CPU engine: the default device is the card, and without one
+    the default fails; the tests ask for "cpu"."""
+    import inspect
+
+    assert inspect.signature(build_engine).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            build_engine(U.tiny_model_cfg(), torch.float32)

@@ -21,7 +21,21 @@ from udifftext_tpu_torch.ops.flash_attention import (
     flash_attention_bwd_ref,
     flash_attention_ref,
 )
-from udifftext_tpu_torch.ops.geglu import geglu_ff, geglu_ff_ref
+from udifftext_tpu_torch.models.attention import BasicTransformerBlock
+from udifftext_tpu_torch.models.layers import cast_weights
+from udifftext_tpu_torch.ops.cross_attention import (
+    cross_attention_supported,
+    fused_cross_attention,
+    fused_cross_attention_ref,
+)
+from udifftext_tpu_torch.ops.geglu import geglu_ff, geglu_ff_ln, geglu_ff_ln_ref, geglu_ff_ref
+from udifftext_tpu_torch.ops.ln_gemm import (
+    ln_gemm,
+    ln_gemm3,
+    ln_gemm3_ref,
+    ln_gemm3_supported,
+    ln_gemm_ref,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -193,3 +207,199 @@ def test_geglu_rejects_what_it_does_not_take(gen):
     xb, w1b, b1b, w2b, b2b = (t[:480].bfloat16() if t.ndim else t for t in (x, w1, b1, w2, b2))
     with pytest.raises(ValueError):  # bf16: I % 64 != 0
         geglu_ff(xb, w1b[:480], b1b[:480], w2b[:, :240].contiguous(), b2b)
+
+
+# -- the LayerNorm-fused kernels ---------------------------------------------
+
+
+def _ln_case(gen, b, n, c, dtype, grad=False):
+    """x, the LayerNorm's fp32 (scale, bias) and three (C, C) weights."""
+    def r(*s, scale=1.0, dt=dtype):
+        return (torch.randn(*s, generator=gen, device="cuda") * scale).to(dt).requires_grad_(grad)
+
+    x = r(b, n, c)
+    scale = (1.0 + 0.1 * torch.randn(c, generator=gen, device="cuda")).requires_grad_(grad)
+    bias = r(c, scale=0.1, dt=torch.float32)
+    return x, scale, bias, [r(c, c, scale=c**-0.5) for _ in range(3)]
+
+
+def _grads_close(got, want, dtype):
+    """Both sides differentiate the plain version; the forward values they
+    start from differ by the kernel's rounding only."""
+    rel = 2**-6 if dtype == torch.bfloat16 else 1e-4
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert float((g.float() - w.float()).abs().max()) <= rel * float(w.float().abs().max())
+
+
+LN_SHAPES = [
+    (2, 4096, 320, torch.bfloat16), (2, 1024, 640, torch.bfloat16),
+    (2, 128, 1280, torch.bfloat16), (1, 64, 96, torch.bfloat16),
+    (2, 1024, 640, torch.float32), (1, 64, 96, torch.float32),
+]
+
+
+@pytest.mark.parametrize("b,n,c,dtype", LN_SHAPES)
+def test_ln_gemm_matches_plain(gen, b, n, c, dtype):
+    x, scale, bias, ws = _ln_case(gen, b, n, c, dtype)
+    w3 = torch.cat(ws, dim=0)
+    before = ln_gemm.launches, ln_gemm3.launches
+    out = ln_gemm(x, scale, bias, w3)
+    q, k, v = ln_gemm3(x, scale, bias, *ws)
+    torch.cuda.synchronize()
+    assert (ln_gemm.launches, ln_gemm3.launches) == (before[0] + 1, before[1] + 1)
+    _check(out, ln_gemm_ref(x, scale, bias, w3))
+    for got, ref in zip((q, k, v), ln_gemm3_ref(x, scale, bias, *ws)):
+        assert got.is_contiguous()
+        _check(got, ref)
+    assert torch.equal(out, torch.cat([q, k, v], dim=-1))  # one kernel, two output layouts
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ln_gemm_grads_match_plain_autograd(gen, dtype):
+    x, scale, bias, ws = _ln_case(gen, 2, 256, 320, dtype, grad=True)
+    ins = (x, scale, bias, *ws)
+    dos = [torch.randn(2, 256, 320, generator=gen, device="cuda").to(dtype) for _ in range(3)]
+    _grads_close(torch.autograd.grad(ln_gemm3(*ins), ins, dos),
+                 torch.autograd.grad(ln_gemm3_ref(*ins), ins, dos), dtype)
+    ins = (x, scale, bias, ws[0])
+    _grads_close(torch.autograd.grad(ln_gemm(*ins), ins, dos[0]),
+                 torch.autograd.grad(ln_gemm_ref(*ins), ins, dos[0]), dtype)
+
+
+def test_ln_gemm_rejects_what_it_does_not_take(gen):
+    x, scale, bias, ws = _ln_case(gen, 1, 128, 64, torch.bfloat16)
+    with pytest.raises(ValueError):  # ragged: 100 rows are not a multiple of the 64-row tile
+        ln_gemm(x[:, :100].contiguous(), scale, bias, ws[0])
+    assert not ln_gemm3_supported(x[:, :100], 64)
+    with pytest.raises(ValueError):
+        ln_gemm(x[..., ::2], scale[::2].contiguous(), bias[::2].contiguous(), ws[0][:, :32])
+    with pytest.raises(TypeError):
+        ln_gemm(x, scale, bias, ws[0].float())
+    with pytest.raises(TypeError):
+        ln_gemm(x, scale.bfloat16(), bias, ws[0])
+    with pytest.raises(ValueError):
+        ln_gemm3(x, scale, bias, ws[0], ws[1][:48], ws[2])
+    with pytest.raises(ValueError):
+        ln_gemm(x, scale.cpu(), bias, ws[0])
+    with pytest.raises(TypeError):
+        ln_gemm(x.half(), scale, bias, ws[0].half())
+
+
+def _cross_case(gen, b, n, c, l, dtype, grad=False):
+    x, scale, bias, ws = _ln_case(gen, b, n, c, dtype, grad)
+    heads = c // 64
+
+    def r(*s, scale=1.0):
+        t = (torch.randn(*s, generator=gen, device="cuda") * scale).to(dtype)
+        return t.requires_grad_(grad)
+
+    return (x, scale, bias, ws[0], r(b, l, heads, 64), r(b, l, heads, 64), ws[1],
+            r(c, scale=0.1)), heads
+
+
+@pytest.mark.parametrize("b,n,c,l,dtype", [
+    (2, 4096, 320, 12, torch.bfloat16), (2, 1024, 640, 12, torch.bfloat16),
+    (2, 256, 1280, 12, torch.bfloat16), (2, 1024, 320, 64, torch.bfloat16),
+    (2, 1024, 640, 2, torch.bfloat16), (2, 1024, 640, 12, torch.float32),
+    (1, 64, 128, 64, torch.float32), (1, 64, 128, 2, torch.float32),
+])
+def test_fused_cross_attention_matches_plain(gen, b, n, c, l, dtype):
+    ins, heads = _cross_case(gen, b, n, c, l, dtype)
+    assert cross_attention_supported(ins[0], ins[4], heads)
+    before = fused_cross_attention.launches
+    out = fused_cross_attention(*ins, heads)
+    torch.cuda.synchronize()
+    assert fused_cross_attention.launches == before + 1
+    _check(out, fused_cross_attention_ref(*ins, heads))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_cross_attention_grads_match_plain_autograd(gen, dtype):
+    ins, heads = _cross_case(gen, 2, 256, 320, 12, dtype, grad=True)
+    do = torch.randn(2, 256, 320, generator=gen, device="cuda").to(dtype)
+    _grads_close(torch.autograd.grad(fused_cross_attention(*ins, heads), ins, do),
+                 torch.autograd.grad(fused_cross_attention_ref(*ins, heads), ins, do), dtype)
+
+
+def test_fused_cross_attention_rejects_what_it_does_not_take(gen):
+    ins, heads = _cross_case(gen, 2, 128, 128, 12, torch.bfloat16)
+    x, scale, bias, wq, k, v, wo, bo = ins
+    with pytest.raises(ValueError):  # ragged: N = 96 is not a multiple of the 64-row tile
+        fused_cross_attention(x[:, :96].contiguous(), scale, bias, wq, k, v, wo, bo, heads)
+    with pytest.raises(ValueError):  # L == 1 is the sigmoid branch
+        fused_cross_attention(x, scale, bias, wq, k[:, :1].contiguous(), v[:, :1].contiguous(),
+                              wo, bo, heads)
+    with pytest.raises(ValueError):  # heads of 32, not 64
+        fused_cross_attention(x, scale, bias, wq, k.reshape(2, 12, 4, 32), v.reshape(2, 12, 4, 32),
+                              wo, bo, 4)
+    with pytest.raises(TypeError):
+        fused_cross_attention(x, scale, bias, wq, k.float(), v, wo, bo, heads)
+    with pytest.raises(ValueError):
+        fused_cross_attention(x, scale, bias, wq, k.transpose(1, 2), v, wo, bo, heads)
+
+
+@pytest.mark.parametrize("m,c,dtype", [
+    (8192, 320, torch.bfloat16), (2048, 640, torch.bfloat16), (512, 1280, torch.bfloat16),
+    (100, 96, torch.bfloat16),  # ragged row block, hidden split in two: each split normalizes
+    (2048, 640, torch.float32), (100, 96, torch.float32),
+])
+def test_geglu_ln_matches_plain(gen, m, c, dtype):
+    x, scale, bias, _ = _ln_case(gen, 1, m, c, dtype)
+
+    def r(*s, scale=1.0):
+        return (torch.randn(*s, generator=gen, device="cuda") * scale).to(dtype)
+
+    w1, b1 = r(8 * c, c, scale=c**-0.5), r(8 * c, scale=0.1)
+    w2, b2 = r(c, 4 * c, scale=(4 * c) ** -0.5), r(c, scale=0.1)
+    before = geglu_ff_ln.launches, geglu_ff.launches
+    out = geglu_ff_ln(x, scale, bias, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert (geglu_ff_ln.launches, geglu_ff.launches) == (before[0] + 1, before[1])
+    _check(out, geglu_ff_ln_ref(x, scale, bias, w1, b1, w2, b2))
+    with pytest.raises(ValueError):
+        geglu_ff_ln(x, scale.bfloat16(), bias, w1, b1, w2, b2)
+
+
+def test_geglu_ln_grads_match_plain_autograd(gen):
+    c = 320
+    x, scale, bias, _ = _ln_case(gen, 2, 256, c, torch.float32, grad=True)
+
+    def r(*s, scale=1.0):
+        return (torch.randn(*s, generator=gen, device="cuda") * scale).requires_grad_(True)
+
+    ins = (x, scale, bias, r(8 * c, c, scale=c**-0.5), r(8 * c, scale=0.1),
+           r(c, 4 * c, scale=(4 * c) ** -0.5), r(c, scale=0.1))
+    do = torch.randn(2, 256, c, generator=gen, device="cuda")
+    _grads_close(torch.autograd.grad(geglu_ff_ln(*ins), ins, do),
+                 torch.autograd.grad(geglu_ff_ln_ref(*ins), ins, do), torch.float32)
+
+
+def test_fused_block_launches_and_matches_unfused(gen):
+    """`fuse_glue="auto"` on the card at a ds2-like shape: one launch of each
+    fused kernel and of flash attention per forward, none of the unfused
+    GEGLU; output within bf16 rounding of the unfused block's."""
+    heads, n, tdim = 10, 1024, 2048
+    fused = cast_weights(BasicTransformerBlock(heads, 64, tdim, fuse_qkv=True, fuse_glue="auto"),
+                         torch.bfloat16).cuda().eval()
+    plain = cast_weights(BasicTransformerBlock(heads, 64, tdim), torch.bfloat16).cuda().eval()
+    with torch.no_grad():
+        for p in fused.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen, device="cuda")
+                    * (p.shape[-1] ** -0.5 if p.ndim > 1 else 0.1) + (1.0 if p.ndim == 1 else 0.0))
+    plain.load_state_dict(fused.state_dict())
+    x = torch.randn(2, n, heads * 64, generator=gen, device="cuda").bfloat16()
+    ctx = torch.randn(2, 12, tdim, generator=gen, device="cuda").bfloat16()
+    fns = (ln_gemm3, fused_cross_attention, geglu_ff_ln, flash_attention, geglu_ff)
+    with torch.no_grad():
+        kv = {"t": fused.t_attn.project_kv(ctx)}
+        before = [f.launches for f in fns]
+        got, _ = fused(x, ctx, None, False, kv)
+        assert [f.launches - b for f, b in zip(fns, before)] == [1, 1, 1, 1, 0]
+        before = [f.launches for f in fns]
+        _, t_map = fused(x, ctx, None, True, kv)  # the map path launches no fused t_attn
+        assert [f.launches - b for f, b in zip(fns, before)] == [1, 0, 1, 1, 0]
+        assert t_map.shape == (2, heads, n, 12)
+        want, _ = plain(x, ctx, None, False, kv)
+    rel = float((got.float() - want.float()).norm() / want.float().norm())
+    assert rel <= 2e-2, rel

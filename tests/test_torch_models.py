@@ -25,7 +25,8 @@ def models():
     cfg = U.tiny_model_cfg()
     je = build_diffusion_engine(cfg, unet_dtype=jnp.float32).engine
     params = U.engine_params(je, seed=3)
-    pe = U.load_port(build_engine(cfg, torch.float32).engine, convert.engine_from_jax(params))
+    pe = U.load_port(build_engine(cfg, torch.float32, "cpu").engine,
+                     convert.engine_from_jax(params))
     return je, params, pe
 
 

@@ -147,7 +147,7 @@ def engines():
     cfg = U.tiny_model_cfg()
     je = build_diffusion_engine(cfg, unet_dtype=jnp.float32).engine
     params = U.engine_params(je, seed=13)
-    pe = U.load_port(build_engine(cfg, torch.float32, train=True).engine,
+    pe = U.load_port(build_engine(cfg, torch.float32, "cpu", train=True).engine,
                      convert.engine_from_jax(params))
     return je, params, pe
 
@@ -459,7 +459,7 @@ def test_train_graph_dict_equals_yaml():
 
 def test_build_engine_train_weights():
     cfg = U.tiny_model_cfg()
-    pe = build_engine(cfg, torch.bfloat16, train=True).engine
+    pe = build_engine(cfg, torch.bfloat16, "cpu", train=True).engine
     for name, p in pe.named_parameters():
         trains = name.startswith("unet.") and ("t_attn" in name or "t_norm" in name)
         assert p.requires_grad is trains, name
@@ -467,7 +467,8 @@ def test_build_engine_train_weights():
             assert p.dtype == torch.float32, name
     assert pe.unet.input_blocks[1][1].transformer_blocks[0].attn1.to_q.weight.dtype == \
         torch.bfloat16
-    assert not any(p.requires_grad for p in build_engine(cfg, torch.bfloat16).engine.parameters())
+    frozen = build_engine(cfg, torch.bfloat16, "cpu").engine
+    assert not any(p.requires_grad for p in frozen.parameters())
     assert pe.ucg_rate_label == 0.1 and pe.loss_cfg.lambda_local_loss == 0.01
     assert pe.loss_cfg.min_attn_size == 8 and pe.sigma_sampler.num_idx == 1000
 
@@ -477,7 +478,7 @@ def test_train_loop(tmp_path, capsys):
     component, drops the incomplete group at each epoch's end, stops after
     max_epochs, and trains only t_attn/t_norm."""
     cfg = U.tiny_model_cfg()
-    bundle = build_engine(cfg, torch.float32, train=True)
+    bundle = build_engine(cfg, torch.float32, "cpu", train=True)
     from udifftext_tpu_torch.builders import randomize_parameters
     randomize_parameters(bundle.engine, 0)
     before = {n: p.detach().clone() for n, p in bundle.engine.named_parameters()}

@@ -176,9 +176,10 @@ def _check_embedders(emb_models) -> Dict[str, Any]:
 
 
 def build_engine(model_cfg: Dict[str, Any], unet_dtype: torch.dtype = torch.bfloat16,
-                 device: torch.device | str = "cpu", train: bool = False,
+                 device: torch.device | str = "cuda", train: bool = False,
                  remat: bool = False) -> EngineBundle:
-    """`model.params` of a textdesign_sd_2.yaml graph → engine on `device`.
+    """`model.params` of a textdesign_sd_2.yaml graph → engine on `device`
+    (the GPU unless the caller asks for "cpu"; without a GPU the default fails).
 
     The UNet computes in `unet_dtype` (weights stored in it), the VAE in fp32
     (bf16 with `first_stage_bf16: true`), the LabelEncoder in fp32. Every

@@ -3,7 +3,10 @@
 // with W1 (2I, C) and W2 (C, I) in PyTorch's Linear layout.
 //
 // Replaces: udifftext_tpu/ops/geglu.py `_geglu_fwd_impl` / `_geglu_kernel`
-// (the Pallas TPU kernel behind `geglu_ff`).
+// (the Pallas TPU kernel behind `geglu_ff`) and, with a LayerNorm prologue on
+// the x rows, `_geglu_ln_fwd_impl` / `_geglu_ln_kernel` (behind
+// `geglu_ff_ln`): out = GEGLU(LN(x)), LN with fp32 centered statistics,
+// rounded to the input dtype.
 //
 // What it computes, at the TPU kernel's rounding points: h and g in fp32
 // (fp32 accumulation plus the bias), act = h·gelu(g) with the exact erf
@@ -37,11 +40,17 @@
 //
 // fp32 (geglu_simt_kernel): the same structure with fp32 FMAs, 16 rows per
 // block, no split.
+//
+// LayerNorm prologue (ln_scale != nullptr): each block normalizes its own
+// rows in shared memory before the hidden loop (tile.cuh), so the normalized
+// activation never reaches device memory. With the hidden dimension split
+// across blocks every split normalizes its rows again; the TPU kernel did it
+// once per x block only because its grid runs in order.
 
 #include <math.h>
 #include <mma.h>
 
-#include "common.cuh"
+#include "tile.cuh"
 
 namespace {
 
@@ -50,6 +59,13 @@ namespace wmma = nvcuda::wmma;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+static_assert(kThreads == udt::kTileThreads, "layer_norm_rows walks rows with kTileWarps warps");
+// The LayerNorm prologue's parameters; scale == nullptr means none.
+struct LnArgs {
+  const float* scale;
+  const float* bias;
+  float eps;
+};
 constexpr float kInvSqrt2 = 0.70710678118654752f;
 
 __device__ __forceinline__ float gelu_erf(float g) { return 0.5f * g * (1.f + erff(g * kInvSqrt2)); }
@@ -71,7 +87,9 @@ template <int MT, int FRAGS>
 __global__ void __launch_bounds__(kThreads)
 geglu_wmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
                   const bf16* __restrict__ b1, const bf16* __restrict__ w2,
-                  float* __restrict__ partial, int M, int C, int I, int units_per_split) {
+                  float* __restrict__ partial, int M, int C, int I, int units_per_split,
+                  const float* __restrict__ ln_scale, const float* __restrict__ ln_bias,
+                  float eps) {
   constexpr int BM = 16 * MT;
   extern __shared__ __align__(128) unsigned char smem_w[];
   const int ldx = C + 8;
@@ -89,6 +107,10 @@ geglu_wmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
   for (int i = tid; i < BM * C; i += kThreads) {
     const int r = i / C, c = i - r * C;
     xs[r * ldx + c] = (m0 + r < M) ? x[(long long)(m0 + r) * C + c] : __float2bfloat16_rn(0.f);
+  }
+  if (ln_scale != nullptr) {
+    __syncthreads();
+    udt::layer_norm_rows(xs, ldx, BM, C, ln_scale, ln_bias, eps);
   }
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FRAGS];
 #pragma unroll
@@ -177,7 +199,7 @@ __global__ void geglu_reduce_kernel(const float* __restrict__ partial, const bf1
 template <int MT, int FRAGS>
 cudaError_t launch_wmma(const void* x, const void* w1, const void* b1, const void* w2,
                         const void* b2, void* out, float* partial, int M, int C, int I,
-                        int splits, cudaStream_t s) {
+                        int splits, LnArgs ln, cudaStream_t s) {
   const size_t smem = wmma_smem_bytes(MT, C);
   cudaError_t err = cudaFuncSetAttribute(geglu_wmma_kernel<MT, FRAGS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -185,7 +207,7 @@ cudaError_t launch_wmma(const void* x, const void* w1, const void* b1, const voi
   dim3 grid((M + 16 * MT - 1) / (16 * MT), splits);
   geglu_wmma_kernel<MT, FRAGS><<<grid, kThreads, smem, s>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),
-      static_cast<const bf16*>(w2), partial, M, C, I, I / splits);
+      static_cast<const bf16*>(w2), partial, M, C, I, I / splits, ln.scale, ln.bias, ln.eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long n = (long long)M * C;
@@ -198,12 +220,12 @@ cudaError_t launch_wmma(const void* x, const void* w1, const void* b1, const voi
 template <int MT>
 cudaError_t dispatch_wmma(const void* x, const void* w1, const void* b1, const void* w2,
                           const void* b2, void* out, float* partial, int M, int C, int I,
-                          int splits, cudaStream_t s) {
+                          int splits, LnArgs ln, cudaStream_t s) {
   const int per_warp = (MT * (C / 16) + kWarps - 1) / kWarps;  // output tiles per warp
-  if (per_warp <= 4) return launch_wmma<MT, 4>(x, w1, b1, w2, b2, out, partial, M, C, I, splits, s);
-  if (per_warp <= 8) return launch_wmma<MT, 8>(x, w1, b1, w2, b2, out, partial, M, C, I, splits, s);
-  if (per_warp <= 12) return launch_wmma<MT, 12>(x, w1, b1, w2, b2, out, partial, M, C, I, splits, s);
-  if (per_warp <= 16) return launch_wmma<MT, 16>(x, w1, b1, w2, b2, out, partial, M, C, I, splits, s);
+  if (per_warp <= 4) return launch_wmma<MT, 4>(x, w1, b1, w2, b2, out, partial, M, C, I, splits, ln, s);
+  if (per_warp <= 8) return launch_wmma<MT, 8>(x, w1, b1, w2, b2, out, partial, M, C, I, splits, ln, s);
+  if (per_warp <= 12) return launch_wmma<MT, 12>(x, w1, b1, w2, b2, out, partial, M, C, I, splits, ln, s);
+  if (per_warp <= 16) return launch_wmma<MT, 16>(x, w1, b1, w2, b2, out, partial, M, C, I, splits, ln, s);
   return cudaErrorInvalidValue;
 }
 
@@ -218,7 +240,9 @@ template <int NC>
 __global__ void __launch_bounds__(kThreads)
 geglu_simt_kernel(const float* __restrict__ x, const float* __restrict__ w1,
                   const float* __restrict__ b1, const float* __restrict__ w2,
-                  const float* __restrict__ b2, float* __restrict__ out, int M, int C, int I) {
+                  const float* __restrict__ b2, float* __restrict__ out, int M, int C, int I,
+                  const float* __restrict__ ln_scale, const float* __restrict__ ln_bias,
+                  float eps) {
   extern __shared__ float smem_f[];
   float* xs = smem_f;                 // [kBM][C]
   float* hg = xs + kBM * C;           // [kBM][2·kSC]: h in [0, kSC), g in [kSC, 2·kSC)
@@ -230,6 +254,10 @@ geglu_simt_kernel(const float* __restrict__ x, const float* __restrict__ w1,
   for (int i = tid; i < kBM * C; i += kThreads) {
     const int r = i / C, c = i - r * C;
     xs[i] = (m0 + r < M) ? x[(long long)(m0 + r) * C + c] : 0.f;
+  }
+  if (ln_scale != nullptr) {
+    __syncthreads();
+    udt::layer_norm_rows(xs, C, kBM, C, ln_scale, ln_bias, eps);
   }
   float acc[kBM][NC];
 #pragma unroll
@@ -295,7 +323,8 @@ geglu_simt_kernel(const float* __restrict__ x, const float* __restrict__ w1,
 
 template <int NC>
 cudaError_t launch_simt(const void* x, const void* w1, const void* b1, const void* w2,
-                        const void* b2, void* out, int M, int C, int I, cudaStream_t s) {
+                        const void* b2, void* out, int M, int C, int I, LnArgs ln,
+                        cudaStream_t s) {
   const size_t smem = sizeof(float) * ((size_t)kBM * C + kBM * 3 * kSC);
   cudaError_t err = cudaFuncSetAttribute(geglu_simt_kernel<NC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -303,21 +332,22 @@ cudaError_t launch_simt(const void* x, const void* w1, const void* b1, const voi
   geglu_simt_kernel<NC><<<(M + kBM - 1) / kBM, kThreads, smem, s>>>(
       static_cast<const float*>(x), static_cast<const float*>(w1), static_cast<const float*>(b1),
       static_cast<const float*>(w2), static_cast<const float*>(b2), static_cast<float*>(out), M,
-      C, I);
+      C, I, ln.scale, ln.bias, ln.eps);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch_simt(const void* x, const void* w1, const void* b1, const void* w2,
-                          const void* b2, void* out, int M, int C, int I, cudaStream_t s) {
+                          const void* b2, void* out, int M, int C, int I, LnArgs ln,
+                          cudaStream_t s) {
   switch ((C + kThreads - 1) / kThreads) {
-    case 1: return launch_simt<1>(x, w1, b1, w2, b2, out, M, C, I, s);
-    case 2: return launch_simt<2>(x, w1, b1, w2, b2, out, M, C, I, s);
-    case 3: return launch_simt<3>(x, w1, b1, w2, b2, out, M, C, I, s);
-    case 4: return launch_simt<4>(x, w1, b1, w2, b2, out, M, C, I, s);
-    case 5: return launch_simt<5>(x, w1, b1, w2, b2, out, M, C, I, s);
-    case 6: return launch_simt<6>(x, w1, b1, w2, b2, out, M, C, I, s);
-    case 7: return launch_simt<7>(x, w1, b1, w2, b2, out, M, C, I, s);
-    case 8: return launch_simt<8>(x, w1, b1, w2, b2, out, M, C, I, s);
+    case 1: return launch_simt<1>(x, w1, b1, w2, b2, out, M, C, I, ln, s);
+    case 2: return launch_simt<2>(x, w1, b1, w2, b2, out, M, C, I, ln, s);
+    case 3: return launch_simt<3>(x, w1, b1, w2, b2, out, M, C, I, ln, s);
+    case 4: return launch_simt<4>(x, w1, b1, w2, b2, out, M, C, I, ln, s);
+    case 5: return launch_simt<5>(x, w1, b1, w2, b2, out, M, C, I, ln, s);
+    case 6: return launch_simt<6>(x, w1, b1, w2, b2, out, M, C, I, ln, s);
+    case 7: return launch_simt<7>(x, w1, b1, w2, b2, out, M, C, I, ln, s);
+    case 8: return launch_simt<8>(x, w1, b1, w2, b2, out, M, C, I, ln, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -325,30 +355,34 @@ cudaError_t dispatch_simt(const void* x, const void* w1, const void* b1, const v
 }  // namespace
 
 // x (M, C), w1 (2I, C), b1 (2I,), w2 (C, I), b2 (C,), out (M, C): contiguous,
-// one dtype.
+// one dtype; ln_scale, ln_bias (C,) fp32 for the LayerNorm prologue (eps its
+// epsilon), or both null for none.
 //   bf16: C % 16 == 0, row_tiles (MT) in {1, 2, 4}, I % (64·splits) == 0,
 //         MT·C/16 <= 128 output tiles; `partial` is fp32 scratch of
 //         splits·M·C elements; pointers 32-byte aligned.
 //   fp32: C <= 2048, I % 32 == 0; `partial`, row_tiles and splits unused.
 // Returns cudaGetLastError() after the launches (or the first failing call).
-extern "C" int udt_geglu_ff(const void* x, const void* w1, const void* b1, const void* w2,
-                            const void* b2, void* out, void* partial, int M, int C, int I,
-                            int row_tiles, int splits, int dtype, void* stream) {
+extern "C" int udt_geglu_ff(const void* x, const void* ln_scale, const void* ln_bias,
+                            const void* w1, const void* b1, const void* w2, const void* b2,
+                            void* out, void* partial, int M, int C, int I, int row_tiles,
+                            int splits, float eps, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (M <= 0 || C <= 0 || I <= 0) return cudaErrorInvalidValue;
+  if (M <= 0 || C <= 0 || I <= 0 || (ln_scale == nullptr) != (ln_bias == nullptr))
+    return cudaErrorInvalidValue;
+  const LnArgs ln{static_cast<const float*>(ln_scale), static_cast<const float*>(ln_bias), eps};
   if (dtype == udt::kBFloat16) {
     if (C % 16 != 0 || splits < 1 || I % (kKC * splits) != 0) return cudaErrorInvalidValue;
     float* p = static_cast<float*>(partial);
     switch (row_tiles) {
-      case 1: return dispatch_wmma<1>(x, w1, b1, w2, b2, out, p, M, C, I, splits, s);
-      case 2: return dispatch_wmma<2>(x, w1, b1, w2, b2, out, p, M, C, I, splits, s);
-      case 4: return dispatch_wmma<4>(x, w1, b1, w2, b2, out, p, M, C, I, splits, s);
+      case 1: return dispatch_wmma<1>(x, w1, b1, w2, b2, out, p, M, C, I, splits, ln, s);
+      case 2: return dispatch_wmma<2>(x, w1, b1, w2, b2, out, p, M, C, I, splits, ln, s);
+      case 4: return dispatch_wmma<4>(x, w1, b1, w2, b2, out, p, M, C, I, splits, ln, s);
       default: return cudaErrorInvalidValue;
     }
   }
   if (dtype == udt::kFloat32) {
     if (C > 8 * kThreads || I % kSC != 0) return cudaErrorInvalidValue;
-    return dispatch_simt(x, w1, b1, w2, b2, out, M, C, I, s);
+    return dispatch_simt(x, w1, b1, w2, b2, out, M, C, I, ln, s);
   }
   return cudaErrorInvalidValue;
 }

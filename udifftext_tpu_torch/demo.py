@@ -1,7 +1,8 @@
 """Scene-text editing demo on the port, as a command-line one-shot:
 
     python -m udifftext_tpu_torch.demo --image in.png --mask mask.png \
-        --text HELLO --out out.png [--steps N --scale S --seed K] [--aae] [--detailed]
+        --text HELLO --out out.png [--steps N --scale S --seed K] [--aae] [--detailed] \
+        [--device cuda|cpu]
 
 Reads ./configs/demo.yaml (and the model graph it names) like the JAX
 build's demo.py, resizes image and mask to H×W, and runs the predictor with
@@ -10,7 +11,8 @@ and prints the per-step local losses; --detailed saves the middle step's
 t_attn maps as .npy files under ./temp/attn_map/. Loading a checkpoint
 into the port is not ported yet: with no checkpoint file the weights are seeded random,
 as the JAX demo falls back to a fresh init; an existing checkpoint raises.
-Needs PyYAML and Pillow; runs on the GPU when there is one.
+Needs PyYAML and Pillow. Runs on the GPU (`--device cuda`, the default) and
+stops with a message when there is none; `--device cpu` asks for the CPU.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch.nn.functional as F
 
 from .builders import build_engine, randomize_parameters
 from .charset import encode_labels
+from .config import load_config
 from .predict import Predictor
 
 
@@ -52,8 +55,6 @@ def build_batch(image: np.ndarray, mask: np.ndarray, text: str, H: int = 512, W:
 def main(argv=None) -> None:
     from PIL import Image
 
-    from udifftext_tpu.config import load_config
-
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--image", required=True)
     p.add_argument("--mask", required=True)
@@ -64,11 +65,15 @@ def main(argv=None) -> None:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--aae", action="store_true")
     p.add_argument("--detailed", action="store_true")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("demo: no CUDA device found; run on a machine with a GPU, or pass "
+                         "--device cpu to run (slowly) on the CPU")
 
     cfgs = load_config("./configs/demo.yaml")
     model_cfg = load_config(cfgs["model_cfg_path"])["model"]["params"]
-    device = "cuda" if torch.cuda.is_available() else "cpu"
     bundle = build_engine(model_cfg, torch.bfloat16 if cfgs.get("bf16", True) else torch.float32,
                           device)
     ckpt = cfgs.get("load_ckpt_path")

@@ -2,8 +2,9 @@
 
 `csrc/*.cu` compile into one shared library with a plain C interface under
 `udifftext_tpu_torch/_build/`, named by a hash of the sources and flags, on
-the first call that needs a kernel. Nothing is built when a module is
-imported, so the package imports on machines without nvcc or a GPU.
+the first call that needs a kernel: one nvcc per source, all started
+together, then one link. Nothing is built when a module is imported, so the
+package imports on machines without nvcc or a GPU.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 # dtype codes understood by the C entry points (csrc/common.cuh)
 DTYPE_CODES: Dict[torch.dtype, int] = {torch.float32: 0, torch.bfloat16: 1}
@@ -63,19 +64,42 @@ def load_library() -> ctypes.CDLL:
         if _lib is None:
             so = library_path()
             if not so.exists():
-                BUILD_DIR.mkdir(parents=True, exist_ok=True)
-                tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-                cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                       *(str(p) for p in sorted(CSRC.glob("*.cu")))]
-                res = subprocess.run(cmd, capture_output=True, text=True)
-                if res.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr}"
-                    )
-                so.with_suffix(".log").write_text(res.stdout + res.stderr)
-                os.replace(tmp, so)
+                _compile(so)
             _lib = ctypes.CDLL(str(so))
     return _lib
+
+
+def _compile(so: Path) -> None:
+    """csrc/*.cu → `so`: every source compiled to an object file at once (a
+    process each), then linked; the compilers' output goes to `<so>.log`."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{so.stem}.{os.getpid()}"
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.PIPE, text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:  # wait for all of them, also after a failure
+        out, err = proc.communicate()
+        log.append(out + err)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = so.with_name(f"{tag}.tmp")
+        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(obj) for _, obj, _ in jobs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr}")
+        so.with_suffix(".log").write_text("".join(log) + res.stdout + res.stderr)
+        os.replace(tmp, so)
+    finally:
+        for _, obj, _ in jobs:
+            obj.unlink(missing_ok=True)
 
 
 def kernel_function(name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
