@@ -19,6 +19,13 @@ each printed on its own line:
    ds1 and ds2 widths, B=2 and B=32, bf16, and one fp32 case each (ln_gemm
    also at (2, 128, 1280) → 3840), and the gradients of each autograd
    Function against the plain version's autograd;
+3d. the probe-level kernels against their plain versions: fused_groupnorm_silu
+   at the ResBlock widths (bf16, fp32, without SiLU at eps 1e-6, and under a
+   large common offset) beside F.group_norm + F.silu; every flash variant
+   (v1-v4) at every tile pair at B·H = 160 and 10, N = 4096 and 1024, beside
+   scaled_dot_product_attention, plus a case whose logits leave ±60, where
+   v3/v4 must follow the clamped plain version and v1/v2 the softmax; and
+   that both wrappers raise when a gradient is asked through them;
 4. one full-width SpatialTransformer at ds1 (320 channels, 64² latent) in
    bf16 on the GPU against the same block in fp32 on the CPU;
 4b. that block's gradients (input, t_attn/t_norm weights), bf16 GPU with
@@ -44,19 +51,27 @@ each printed on its own line:
    fuse_qkv=True, fuse_glue="auto" against the unfused block on the same
    seeded weights with hoisted K/V (ds1 and ds2) and against the fp32 CPU
    block (ds1), its launch counts per forward, map capture, and one backward
-   (input and t_attn/t_norm gradients against the unfused block's).
+   (input and t_attn/t_norm gradients against the unfused block's);
+9. the ResBlock probe (udifftext_tpu_torch.scripts.resblock_probe) through its
+   entry function at batch 32, 320 channels, every label printed;
+10. the flash-variants probe (udifftext_tpu_torch.scripts.flash_variants)
+   through its entry function at B=32, H=5, N=4096, every label printed
+   with ms and TFLOP/s, the library line included.
 
 Beside every kernel's time stand its plain version's, its bound (the least
 time the card could take: the larger of bytes moved once over 3.35 TB/s and
-operations over 989 TFLOP/s for bf16, 67 TFLOP/s for fp32) and, for flash
-attention, the time of torch's scaled_dot_product_attention on the same
-inputs, which the port itself never calls.
+operations over 989 TFLOP/s for bf16, 67 TFLOP/s for fp32) and, where one
+PyTorch call computes the same function (scaled_dot_product_attention;
+group_norm then silu), that call's time on the same inputs; the port itself
+never calls it.
 
-Each path (demo, AAE, training, glue probe) runs with the launch counts set
-to 0 just before it and read just after. Any failure exits non-zero. The
+Each path (demo, AAE, training, glue probe, ResBlock probe, variants probe)
+runs with the launch counts set to 0 just before it and read just after.
+Any failure exits non-zero. The
 second-to-last line is the kernels' JSON record: each kernel's `launches`
 counts the path named by its `launches_path` (training for the kernels the
-UNet runs, the glue probe for the four that only the fused block runs),
+UNet runs, the glue probe for the four that only the fused block runs, the
+ResBlock probe for the fused GroupNorm, the variants probe for v1-v4),
 `launches_by_path` holds every path's count. The last line is
 {"ok": true, "device": {...}}.
 """
@@ -148,12 +163,23 @@ def rel_l2(got, want) -> float:
 
 
 def counts(*fns) -> dict:
-    return {f.__name__: f.launches for f in fns}
+    """Launch counts by wrapper name; a wrapper that counts per variant in a
+    dict gives one entry per variant, `<name>_<variant>`."""
+    out = {}
+    for f in fns:
+        if isinstance(f.launches, dict):
+            out.update({f"{f.__name__}_{k}": n for k, n in f.launches.items()})
+        else:
+            out[f.__name__] = f.launches
+    return out
 
 
 def reset(*fns) -> None:
     for f in fns:
-        f.launches = 0
+        if isinstance(f.launches, dict):
+            f.launches.update(dict.fromkeys(f.launches, 0))
+        else:
+            f.launches = 0
 
 
 class SyntheticBatches:
@@ -226,18 +252,28 @@ def main() -> None:
         fused_cross_attention,
         fused_cross_attention_ref,
     )
+    from udifftext_tpu_torch.ops.flash_variants import (
+        TILE_MENU,
+        VARIANTS,
+        flash_v1_with_lse,
+        flash_variant,
+        flash_variant_ref,
+        smem_bytes,
+    )
     from udifftext_tpu_torch.ops.geglu import geglu_ff, geglu_ff_ln, geglu_ff_ln_ref, geglu_ff_ref
+    from udifftext_tpu_torch.ops.groupnorm import fused_groupnorm_silu, fused_groupnorm_silu_ref
     from udifftext_tpu_torch.ops.ln_gemm import ln_gemm, ln_gemm3, ln_gemm3_ref, ln_gemm_ref
     from udifftext_tpu_torch.predict import Predictor
-    from udifftext_tpu_torch.scripts import glue_fusion_probe
+    from udifftext_tpu_torch.scripts import flash_variants as variants_probe
+    from udifftext_tpu_torch.scripts import glue_fusion_probe, resblock_probe
     from udifftext_tpu_torch.train import train
 
     kernel_fns = (flash_attention, flash_attention_bwd, geglu_ff, ln_gemm, ln_gemm3,
-                  fused_cross_attention, geglu_ff_ln)
+                  fused_cross_attention, geglu_ff_ln, fused_groupnorm_silu, flash_variant)
 
     def expected(**launched) -> dict:
         """A path's launch counts: the named kernels, and 0 for every other."""
-        return {**{f.__name__: 0 for f in kernel_fns}, **launched}
+        return {**dict.fromkeys(counts(*kernel_fns), 0), **launched}
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -258,11 +294,17 @@ def main() -> None:
     kernel = ""
     for line in _build.library_path().with_suffix(".log").read_text().splitlines():
         m = re.search(r"entry function '\w*?((?:flash_fwd|flash_bwd_dq|flash_bwd_dkdv|geglu_wmma"
-                      r"|geglu_simt|geglu_reduce|ln_gemm|cross_attn)_kernel)(\w*)'", line)
+                      r"|geglu_simt|geglu_reduce|ln_gemm|cross_attn|gn_stats|gn_apply"
+                      r"|flash_variant)_kernel)(\w*)'", line)
         if m:
             kernel = m.group(1) + m.group(2).replace("__nv_bfloat16", "bf16")
         elif "spill stores" in line or "registers" in line:
             log(f"[ptxas] {kernel}: {line.split(':', 1)[-1].strip()}")
+    for dtype, pairs in TILE_MENU.items():
+        for bq, bk in pairs:
+            log(f"[smem] flash_variant {dtype} tiles ({bq}, {bk}): "
+                f"{smem_bytes(bq, bk, False, dtype)} bytes of dynamic shared memory, "
+                f"{smem_bytes(bq, bk, True, dtype)} transposed")
 
     # 3. kernels against their plain versions
     g = torch.Generator(dev).manual_seed(0)
@@ -486,6 +528,119 @@ def main() -> None:
             del g1, g3
         del x, ws, w3, k_, v_, bo, ca_in, w1, b1, w2, b2, ff_in
         torch.cuda.empty_cache()
+
+    # 3d. the probe-level kernels: fused GroupNorm+SiLU and the flash variants
+    F = torch.nn.functional
+    gn_cases = [  # (label, shape, dtype, with_silu, eps, common offset); the probe's shape first
+        ("ds1 B=32", (32, 64, 64, 320), torch.bfloat16, True, 1e-5, 0.0),
+        ("ds1 B=2", (2, 64, 64, 320), torch.bfloat16, True, 1e-5, 0.0),
+        ("ds2 B=2", (2, 32, 32, 640), torch.bfloat16, True, 1e-5, 0.0),
+        ("ds4 B=2", (2, 16, 16, 1280), torch.bfloat16, True, 1e-5, 0.0),
+        ("ds1 decoder B=2", (2, 64, 64, 960), torch.bfloat16, True, 1e-5, 0.0),
+        ("ds2 B=2 fp32", (2, 32, 32, 640), torch.float32, True, 1e-5, 0.0),
+        ("(2, 1000, 64) fp32, no SiLU, eps 1e-6", (2, 1000, 64), torch.float32, False, 1e-6, 0.0),
+        ("ds1 B=2 fp32, offset 1000", (2, 64, 64, 320), torch.float32, True, 1e-5, 1000.0),
+    ]
+    for label, shape, dtype, with_silu, eps, offset in gn_cases:
+        c = shape[-1]
+        x = (torch.randn(*shape, generator=g, device=dev) + offset).to(dtype)
+        gn_s, gn_b = ln_params(c)
+        out = fused_groupnorm_silu(x, gn_s, gn_b, 32, eps, with_silu)
+        ref = fused_groupnorm_silu_ref(x, gn_s, gn_b, 32, eps, with_silu)
+        torch.cuda.synchronize()
+        err = max_err(out, ref)
+        # under the offset both sides subtract fp32 means of values whose own
+        # spacing is 6e-5 and that were summed in another order
+        tol = 1e-3 if offset else tol_of(ref)
+        ms = time_ms(lambda: fused_groupnorm_silu(x, gn_s, gn_b, 32, eps, with_silu))
+        plain_ms = time_ms(lambda: fused_groupnorm_silu_ref(x, gn_s, gn_b, 32, eps, with_silu),
+                           reps=5)
+        # the library's call for the same function, on the channels-first view of the same tensor
+        xv = x.movedim(-1, 1)
+        w_, b_ = gn_s.to(dtype), gn_b.to(dtype)
+        lib_ms = time_ms(lambda: F.silu(F.group_norm(xv, 32, w_, b_, eps)) if with_silu
+                         else F.group_norm(xv, 32, w_, b_, eps))
+        # the same call without the layout copy it makes of that view: on an
+        # NCHW-contiguous copy made outside the timer (logged, not recorded)
+        xc = xv.contiguous()
+        lib_nchw_ms = time_ms(lambda: F.silu(F.group_norm(xc, 32, w_, b_, eps)) if with_silu
+                              else F.group_norm(xc, 32, w_, b_, eps))
+        note = record(records, "fused_groupnorm_silu", label, err, ms, plain_ms,
+                      bound_ms(10 * x.numel(), nbytes(x, gn_s, gn_b, out), dtype), lib_ms)
+        log(f"[groupnorm] {label} {shape}: max_abs_err {err:.3e} (tol {tol:.3e}); kernel "
+            f"{ms:.3f} ms ({nbytes(x, out) / ms / 1e6:.0f} GB/s), plain {plain_ms:.3f} ms, {note}; "
+            f"library on an NCHW copy {lib_nchw_ms:.3f} ms")
+        if not err <= tol:
+            fail(f"fused_groupnorm_silu {label} disagrees with its plain version")
+        del x, out, ref, xv, xc
+    torch.cuda.empty_cache()
+
+    def check_variants(label, q, k, v, timed):
+        """Every variant at every tile pair of q's dtype against the plain
+        version of its own function (softmax, or the clamped form)."""
+        dtype, (bh, n, _) = q.dtype, q.shape
+        refs = {clamp: flash_variant_ref(q, k, v, clamp) for clamp in (False, True)}
+        flops = 4 * bh * n * n * 64
+        if timed:
+            plain = {clamp: time_ms(lambda: flash_variant_ref(q, k, v, clamp), reps=3)
+                     for clamp in (False, True)}
+            # (1, B·H, N, d): on three dimensions the call would not reach its fused kernels
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q[None], k[None], v[None]))
+        for name, (transposed, clamp) in VARIANTS.items():
+            ref = refs[clamp][0]
+            tol = tol_of(ref)
+            for bq, bk in TILE_MENU[dtype]:
+                out = flash_variant(q, k, v, name, bq, bk)
+                torch.cuda.synchronize()
+                err = max_err(out, ref)
+                line = f"[variants] {label} {name} ({bq}, {bk}): max_abs_err {err:.3e} (tol {tol:.3e})"
+                if timed:
+                    ms = time_ms(lambda: flash_variant(q, k, v, name, bq, bk), reps=5)
+                    note = record(records, f"flash_variant_{name}", f"{label} tiles ({bq}, {bk})",
+                                  err, ms, plain[clamp],
+                                  bound_ms(flops, nbytes(q, k, v, out), dtype), lib_ms)
+                    line += (f"; kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+                             f"{plain[clamp]:.3f} ms, {note}")
+                log(line)
+                if not err <= tol:
+                    fail(f"flash variant {name} ({bq}, {bk}) {label} disagrees with its plain version")
+        out, lse = flash_v1_with_lse(q, k, v)
+        torch.cuda.synchronize()
+        lse_err = float((lse - refs[False][1]).abs().max())
+        log(f"[variants] {label} v1 log-sum-exp err {lse_err:.3e} (tol 1e-4)")
+        if not lse_err <= 1e-4:
+            fail(f"flash variant v1 {label}: log-sum-exp disagrees")
+        return refs
+
+    for label, bh, n, dtype in (("B·H=160 N=4096", 160, 4096, torch.bfloat16),
+                                ("B·H=10 N=4096", 10, 4096, torch.bfloat16),
+                                ("B·H=160 N=1024", 160, 1024, torch.bfloat16),
+                                ("B·H=10 N=1024", 10, 1024, torch.bfloat16),
+                                ("B·H=10 N=1024 fp32", 10, 1024, torch.float32)):
+        q, k, v = (randn(bh, n, 64, dtype=dtype, scale=0.3) for _ in range(3))
+        check_variants(label, q, k, v, timed=True)
+        del q, k, v
+        torch.cuda.empty_cache()
+    # logits far outside ±60: v3/v4 follow the clamped form, v1/v2 the softmax
+    q, k, v = (randn(10, 1024, 64, scale=sc) for sc in (9.0, 2.4, 0.3))
+    logit_max = float((q[:1].float() @ k[:1].float().transpose(1, 2)).abs().max()) / 8
+    refs = check_variants("clamp active", q, k, v, timed=False)
+    apart = max_err(refs[True][0], refs[False][0])
+    log(f"[variants] clamp active: largest |logit| {logit_max:.1f}; the clamped form is "
+        f"{apart:.3e} from softmax there")
+    if not (logit_max > 80 and apart > 0.1):
+        fail("the clamp-active case does not drive the logits past the clamp")
+    for name, fn in (("fused_groupnorm_silu",
+                      lambda t: fused_groupnorm_silu(t, *ln_params(64))),
+                     ("flash_variant", lambda t: flash_variant(t, t, t, "v3"))):
+        try:
+            fn(torch.zeros(2, 64, 64, device=dev, requires_grad=True))
+        except RuntimeError as e:
+            log(f"[forward-only] {name} raises under grad: {str(e)[:60]}...")
+        else:
+            fail(f"{name} returned a tensor when a gradient was asked through it")
+    del q, k, v, refs
+    torch.cuda.empty_cache()
 
     # 4. one full-width ds1 transformer block, GPU bf16 against CPU fp32
     blk_cpu = randomize_parameters(SpatialTransformer(320, 5, 64, 1, 2048), 1).eval()
@@ -784,6 +939,42 @@ def main() -> None:
         del plain_cpu, plain, fused, grads
         torch.cuda.empty_cache()
 
+    # 9. the ResBlock probe: the fused GroupNorm+SiLU against the eager glue
+    reps, runs = 20, 5
+    calls = 1 + runs * reps  # per label: one warm-up, then the timed runs
+    reset(*kernel_fns)
+    probe = resblock_probe.run(batch=32, channels=320, reps=reps, runs=runs, device=str(dev))
+    torch.cuda.synchronize()
+    launches = by_path["resblock_probe"] = counts(*kernel_fns)
+    # two launches per fused ResBlock call, one per glue call, one for the difference
+    want = expected(fused_groupnorm_silu=2 * calls + calls + 1)
+    log(f"[resblock_probe] {len(probe)} labels at B=32, C=320, K={reps}; launches {launches}")
+    if launches != want:
+        fail(f"ResBlock probe launches {launches}, expected {want}")
+    diff = probe.pop(resblock_probe.DIFF_LABEL)
+    if len(probe) != 5 or not all(np.isfinite(v) and v > 0 for v in probe.values()):
+        fail(f"ResBlock probe returned {len(probe)} timed labels of 5, or a time that is not positive")
+    if not diff <= 2**-7 * 8:  # two bf16 ulps of a normalized activation below 8
+        fail(f"ResBlock probe: eager and fused glue differ by {diff}")
+
+    # 10. the flash-variants probe
+    reps, runs = 5, 3
+    calls = 1 + 1 + runs * reps  # per label: the oracle check, one warm-up, the timed runs
+    reset(*kernel_fns)
+    probe = variants_probe.run(reps=reps, runs=runs, device=str(dev))
+    torch.cuda.synchronize()
+    launches = by_path["flash_variants"] = counts(*kernel_fns)
+    pairs = len(TILE_MENU[torch.bfloat16])
+    want = expected(flash_attention=calls,
+                    **{f"flash_variant_{name}": pairs * calls for name in VARIANTS})
+    log(f"[flash_variants] {len(probe)} labels at B·H=160, N=4096, K={reps}; launches {launches}")
+    if launches != want:
+        fail(f"flash-variants probe launches {launches}, expected {want}")
+    if len(probe) != 2 + 4 * pairs or not all(
+            np.isfinite(ms) and ms > 0 and np.isfinite(tf) for ms, tf in probe.values()):
+        fail(f"flash-variants probe returned {len(probe)} labels of {2 + 4 * pairs}, or a time "
+             "that is not positive")
+
     kernels = []
     for name, src, replaces, key, path in (
         ("flash_attention_fwd", "udifftext_tpu_torch/csrc/flash_attention.cu",
@@ -800,6 +991,16 @@ def main() -> None:
          "udifftext_tpu/ops/cross_attention.py:36", "fused_cross_attention", "glue_probe"),
         ("geglu_ff_ln", "udifftext_tpu_torch/csrc/geglu.cu", "udifftext_tpu/ops/geglu.py:55",
          "geglu_ff_ln", "glue_probe"),
+        ("fused_groupnorm_silu", "udifftext_tpu_torch/csrc/groupnorm.cu",
+         "udifftext_tpu/ops/groupnorm.py:36", "fused_groupnorm_silu", "resblock_probe"),
+        ("flash_variant_v1", "udifftext_tpu_torch/csrc/flash_variants.cu",
+         "udifftext_tpu/ops/flash_attention.py:41", "flash_variant_v1", "flash_variants"),
+        ("flash_variant_v2", "udifftext_tpu_torch/csrc/flash_variants.cu",
+         "scripts/flash_variants.py:37", "flash_variant_v2", "flash_variants"),
+        ("flash_variant_v3", "udifftext_tpu_torch/csrc/flash_variants.cu",
+         "scripts/flash_variants.py:76", "flash_variant_v3", "flash_variants"),
+        ("flash_variant_v4", "udifftext_tpu_torch/csrc/flash_variants.cu",
+         "scripts/flash_variants.py:37", "flash_variant_v4", "flash_variants"),
     ):
         if by_path[path][key] < 1:
             fail(f"{name} was launched no time on the {path} path")

@@ -172,7 +172,8 @@ import udifftext_tpu_torch
 from udifftext_tpu_torch import config, demo, predict, train
 from udifftext_tpu_torch.builders import build_engine, randomize_parameters
 from udifftext_tpu_torch.parallel import train as parallel_train
-from udifftext_tpu_torch.scripts import glue_fusion_probe
+from udifftext_tpu_torch.ops import flash_variants as fv_ops, groupnorm as gn_ops
+from udifftext_tpu_torch.scripts import flash_variants, glue_fusion_probe, resblock_probe
 from udifftext_tpu_torch.utils import convert, logger
 bundle = build_engine(json.loads(sys.argv[1]), torch.float32, "cpu", train=True)
 randomize_parameters(bundle.engine, 0)
@@ -191,6 +192,10 @@ state = train.train({"lightning": {"max_epochs": 1}, "log_dir": sys.argv[2]}, [b
 assert state.step == 1
 glue_fusion_probe.run(batch=1, reps=1, device="cpu", shapes=(("tiny", 8, 64),), ctx_dim=16,
                       dim_head=32, dtype=torch.float32, runs=1)
+assert len(resblock_probe.run(batch=1, channels=32, hw=4, reps=1, runs=1, device="cpu",
+                              dtype=torch.float32)) == 6
+assert len(flash_variants.run(reps=1, batch=1, heads=1, n=64, runs=1, device="cpu",
+                              dtype=torch.float32)) == 6
 # the demo CLI end to end: it reads its YAML through the port's own config module
 os.chdir(sys.argv[2])
 os.makedirs("configs")
@@ -212,8 +217,8 @@ print(json.dumps(bad))
 
 
 def test_port_never_imports_jax(tmp_path):
-    """Sampling (plain and AAE), one training step, the glue-fusion probe and
-    the demo CLI in a fresh process leave jax, flax and the JAX package out
+    """Sampling (plain and AAE), one training step, the three probes and the
+    demo CLI in a fresh process leave jax, flax and the JAX package out
     of sys.modules."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)

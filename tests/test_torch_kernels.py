@@ -9,7 +9,9 @@ bf16 ulps of the largest reference value (one rounding of the output).
 Gradients through autograd against the plain versions' autograd: bf16
 within four ulps of the largest gradient (the kernel's delta reads the
 bf16-rounded output, the plain softmax backward the fp32 one), fp32 1e-4
-of the largest gradient."""
+of the largest gradient. The fused GroupNorm under a common offset of
+1000: 1e-3 absolute (fp32 values there are 6e-5 apart and the two sides sum
+their means in different orders)."""
 
 import pytest
 import torch
@@ -28,7 +30,16 @@ from udifftext_tpu_torch.ops.cross_attention import (
     fused_cross_attention,
     fused_cross_attention_ref,
 )
+from udifftext_tpu_torch.ops.flash_variants import (
+    TILE_MENU,
+    VARIANTS,
+    flash_v1_with_lse,
+    flash_variant,
+    flash_variant_ref,
+    smem_bytes,
+)
 from udifftext_tpu_torch.ops.geglu import geglu_ff, geglu_ff_ln, geglu_ff_ln_ref, geglu_ff_ref
+from udifftext_tpu_torch.ops.groupnorm import fused_groupnorm_silu, fused_groupnorm_silu_ref
 from udifftext_tpu_torch.ops.ln_gemm import (
     ln_gemm,
     ln_gemm3,
@@ -403,3 +414,139 @@ def test_fused_block_launches_and_matches_unfused(gen):
         want, _ = plain(x, ctx, None, False, kv)
     rel = float((got.float() - want.float()).norm() / want.float().norm())
     assert rel <= 2e-2, rel
+
+
+# -- the probe-level kernels: fused GroupNorm+SiLU, the flash variants --------
+
+
+def _gn_case(gen, shape, dtype, offset=0.0):
+    c = shape[-1]
+    x = (torch.randn(*shape, generator=gen, device="cuda") + offset).to(dtype)
+    scale = 1.0 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+    bias = 0.1 * torch.randn(c, generator=gen, device="cuda")
+    return x, scale, bias
+
+
+@pytest.mark.parametrize("shape,dtype,with_silu,eps", [
+    ((2, 64, 64, 320), torch.bfloat16, True, 1e-5),
+    ((32, 64, 64, 320), torch.bfloat16, True, 1e-5),
+    ((2, 32, 32, 640), torch.bfloat16, True, 1e-5),
+    ((2, 16, 16, 1280), torch.bfloat16, True, 1e-5),
+    ((2, 64, 64, 960), torch.bfloat16, True, 1e-5),
+    ((2, 32, 32, 1920), torch.bfloat16, True, 1e-5),
+    ((2, 8, 8, 2560), torch.bfloat16, True, 1e-5),   # more 16-byte vectors than threads
+    ((3, 777, 64), torch.bfloat16, True, 1e-5),      # ragged last chunk
+    ((2, 64, 1280), torch.bfloat16, False, 1e-6),
+    ((2, 32, 32, 640), torch.float32, True, 1e-5),
+    ((2, 1000, 64), torch.float32, False, 1e-6),
+    ((1, 1, 4096), torch.float32, True, 1e-5),       # one row, the widest C
+])
+def test_groupnorm_matches_plain(gen, shape, dtype, with_silu, eps):
+    x, scale, bias = _gn_case(gen, shape, dtype)
+    before = fused_groupnorm_silu.launches
+    out = fused_groupnorm_silu(x, scale, bias, 32, eps, with_silu)
+    torch.cuda.synchronize()
+    assert fused_groupnorm_silu.launches == before + 1
+    _check(out, fused_groupnorm_silu_ref(x, scale, bias, 32, eps, with_silu))
+
+
+def test_groupnorm_other_group_counts_and_offset(gen):
+    x, scale, bias = _gn_case(gen, (2, 256, 96), torch.float32)
+    for groups in (1, 4, 12):
+        _check(fused_groupnorm_silu(x, scale, bias, groups),
+               fused_groupnorm_silu_ref(x, scale, bias, groups))
+    x, scale, bias = _gn_case(gen, (2, 64, 64, 320), torch.float32, offset=1000.0)
+    got, ref = fused_groupnorm_silu(x, scale, bias), fused_groupnorm_silu_ref(x, scale, bias)
+    assert float((got - ref).abs().max()) <= 1e-3
+    # what E[x²] − mean² would make of the same data
+    xg = x.reshape(2, -1, 32, 10)
+    var = (xg * xg).mean(dim=(1, 3)) - xg.mean(dim=(1, 3)) ** 2
+    assert float((var - 1).abs().max()) > 0.02
+
+
+def test_groupnorm_is_deterministic(gen):
+    x, scale, bias = _gn_case(gen, (4, 64, 64, 320), torch.bfloat16)
+    assert torch.equal(fused_groupnorm_silu(x, scale, bias), fused_groupnorm_silu(x, scale, bias))
+
+
+def test_groupnorm_rejects_what_it_does_not_take(gen):
+    x, scale, bias = _gn_case(gen, (2, 16, 16, 64), torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):  # channels-first memory, NHWC shape
+        fused_groupnorm_silu(x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1), scale, bias)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_groupnorm_silu(x[:, ::2], scale, bias)
+    with pytest.raises(ValueError):  # C % 8 != 0
+        fused_groupnorm_silu(x[..., :36].contiguous(), scale[:36].clone(), bias[:36].clone(), 3)
+    with pytest.raises(ValueError):  # C % num_groups != 0
+        fused_groupnorm_silu(x, scale, bias, 24)
+    with pytest.raises(TypeError):
+        fused_groupnorm_silu(x.half(), scale, bias)
+    with pytest.raises(TypeError):
+        fused_groupnorm_silu(x, scale.bfloat16(), bias)
+    with pytest.raises(ValueError):
+        fused_groupnorm_silu(x, scale[:32].clone(), bias)
+    with pytest.raises(ValueError):
+        fused_groupnorm_silu(x, scale.cpu(), bias)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        fused_groupnorm_silu(x.requires_grad_(True), scale, bias)
+
+
+@pytest.mark.parametrize("bh,n,dtype,hot", [
+    (10, 1024, torch.bfloat16, False), (10, 4096, torch.bfloat16, False),
+    (3, 512, torch.bfloat16, True), (10, 1024, torch.float32, False),
+    (3, 512, torch.float32, True),
+])
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_flash_variant_matches_plain(gen, variant, bh, n, dtype, hot):
+    """Every tile pair of the dtype's menu; `hot` drives the logits past ±60,
+    where v3/v4 follow the clamped plain version and v1/v2 the softmax."""
+    scales = (9.0, 2.4, 0.3) if hot else (0.3, 0.3, 0.3)
+    q, k, v = ((torch.randn(bh, n, 64, generator=gen, device="cuda") * s).to(dtype)
+               for s in scales)
+    clamp = VARIANTS[variant][1]
+    ref, _ = flash_variant_ref(q, k, v, clamp)
+    if hot:
+        assert float((q[:1].float() @ k[:1].float().transpose(1, 2)).abs().max()) / 8 > 60
+        other, _ = flash_variant_ref(q, k, v, not clamp)
+        assert float((ref.float() - other.float()).abs().max()) > 0.1
+    for bq, bk in TILE_MENU[dtype]:
+        before = flash_variant.launches[variant]
+        out = flash_variant(q, k, v, variant, bq, bk)
+        torch.cuda.synchronize()
+        assert flash_variant.launches[variant] == before + 1
+        assert torch.isfinite(out).all()
+        _check(out, ref)
+
+
+def test_flash_variant_v1_lse_and_cross_lengths(gen):
+    q = (torch.randn(4, 256, 64, generator=gen, device="cuda") * 0.5).bfloat16()
+    k, v = ((torch.randn(4, 1024, 64, generator=gen, device="cuda") * 0.5).bfloat16()
+            for _ in range(2))
+    out, lse = flash_v1_with_lse(q, k, v, 128, 128)
+    ref, ref_lse = flash_variant_ref(q, k, v, False)
+    _check(out, ref)
+    assert float((lse - ref_lse).abs().max()) <= 1e-4
+    _check(flash_variant(q, k, v, "v4", 64, 128), flash_variant_ref(q, k, v, True)[0])
+
+
+def test_flash_variant_rejects_what_it_does_not_take(gen):
+    q = torch.randn(2, 256, 64, generator=gen, device="cuda").bfloat16()
+    with pytest.raises(ValueError):
+        flash_variant(q, q, q, "v1", 512, 512)  # a TPU-sized tile pair, not on the menu
+    with pytest.raises(ValueError):
+        flash_variant(q.float(), q.float(), q.float(), "v2", 128, 64)  # fp32 has (64, 64) only
+    with pytest.raises(ValueError):
+        flash_variant(q[:, :192].contiguous(), q, q, "v1", 128, 64)  # Nq % bq != 0
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_variant(q.transpose(0, 1).contiguous().transpose(0, 1), q, q, "v1")
+    with pytest.raises(TypeError):
+        flash_variant(q.half(), q.half(), q.half(), "v1")
+    with pytest.raises(ValueError):
+        flash_variant(q, q.cpu(), q, "v1")
+    with pytest.raises(ValueError, match="unknown variant"):
+        flash_variant(q, q, q, "v9")
+    with pytest.raises(RuntimeError, match="forward-only"):
+        flash_variant(q.requires_grad_(True), q, q, "v2")
+    assert smem_bytes(128, 128, True, torch.bfloat16) <= 232448
+    with pytest.raises(ValueError):
+        smem_bytes(128, 128, False, torch.float32)

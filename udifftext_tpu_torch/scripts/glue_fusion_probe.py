@@ -26,8 +26,6 @@ returns {label: ms} and prints one line per label.
 from __future__ import annotations
 
 import argparse
-import statistics
-import time
 from typing import Callable, Dict, Sequence, Tuple
 
 import torch
@@ -38,36 +36,12 @@ from ..models.attention import BasicTransformerBlock, CrossAttention, SelfAttent
 from ..models.layers import LayerNormF32, cast_weights
 from ..ops.cross_attention import fused_cross_attention
 from ..ops.ln_gemm import ln_gemm, ln_gemm3
+from ._timing import probe_device, time_ms
 
 CTX_DIM = 2048
 CTX_LEN = 12
 DIM_HEAD = 64
 SHAPES = (("ds1", 64, 320), ("ds2", 32, 640))  # (name, latent side, C)
-
-
-def time_ms(fn: Callable[[], object], reps: int, runs: int, device: torch.device) -> float:
-    """Median over `runs` of the milliseconds per call of `reps` back-to-back
-    calls: CUDA events on the GPU, the host clock on the CPU."""
-    fn()  # warm-up; the first kernel call also builds the library
-    times = []
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-        for _ in range(runs):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(reps):
-                fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end) / reps)
-    else:
-        for _ in range(runs):
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                fn()
-            times.append((time.perf_counter() - t0) * 1e3 / reps)
-    return statistics.median(times)
 
 
 def _module(mod: torch.nn.Module, seed: int, dtype: torch.dtype, device: torch.device):
@@ -81,10 +55,7 @@ def run(batch: int = 16, reps: int = 20, device: str = "cuda",
         dim_head: int = DIM_HEAD, dtype: torch.dtype = torch.bfloat16,
         runs: int = 5) -> Dict[str, float]:
     """The probe at CFG-doubled batch 2·`batch`; returns {label: ms}."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("glue_fusion_probe: no CUDA device found (pass device='cpu' to "
-                           "check the script on the CPU)")
+    dev = probe_device("glue_fusion_probe", device)
     clock = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "CPU host clock"
     b2 = 2 * batch
     gen = torch.Generator(dev).manual_seed(0)
