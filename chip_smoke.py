@@ -7,13 +7,18 @@ torch, numpy and the port only (no JAX, PyYAML, Pillow or OpenCV). Phases,
 each printed on its own line:
 
 1. the card's name and power limit, as nvidia-smi prints them;
-2. the kernel build from udifftext_tpu_torch/csrc, with its time;
+2. the kernel build from udifftext_tpu_torch/csrc, with its time and the
+   compiler's register and spill report of every kernel; it fails if a
+   tensor-core flash kernel spills or had its wgmma pipeline serialized;
 3. each forward kernel against its plain PyTorch version on the same CUDA
    tensors, at the main path's shapes: max error against the stated
-   tolerance and both times (CUDA events, median of repeated runs);
+   tolerance and both times (CUDA events, median of repeated runs); each
+   flash case names the kernel route that served it ("mma": tensor cores,
+   bf16 with d = 64; "fma": fp32, and bf16 with d = 128);
 3b. the flash backward kernel against its plain version at the training
    and attend-and-excite shapes and in fp32: max error of dq, dk, dv each
-   against a tolerance scaled to that gradient's magnitude, and both times;
+   against a tolerance scaled to that gradient's magnitude, both times and
+   the route;
 3c. the four LayerNorm-fused kernels (ln_gemm, ln_gemm3, fused_cross_attention,
    geglu_ff_ln) against their plain versions on seeded random tensors at the
    ds1 and ds2 widths, B=2 and B=32, bf16, and one fp32 case each (ln_gemm
@@ -33,8 +38,11 @@ each printed on its own line:
 5. the demo flow at full width (configs/test/textdesign_sd_2.yaml, held in
    builders.TEXTDESIGN_SD_2) with seeded random weights: a synthetic 512²
    image, a mask and the text "HELLO"; 10 candidates in the batched
-   init-noise search, 50 steps, CFG 4.0. It checks the output and that the
-   kernels served every flash/GEGLU call of the path;
+   init-noise search, 50 steps, CFG 4.0, four times (the spread is the
+   host's). It checks the output and that the kernels served every
+   flash/GEGLU call of the path; then one more sample under torch.profiler
+   for the device time by kernel group (`[profile]`; likewise one optimizer
+   step after phase 6 and an AAE run cut to 5 steps after phase 7);
 6. the fine-tuning step at full width (configs/train/textdesign_sd_2.yaml,
    held in builders.TEXTDESIGN_SD_2_TRAIN, seeded random weights;
    configs/train.yaml's batch_size 16 and accumulate_grad_batches 4) on
@@ -72,7 +80,8 @@ second-to-last line is the kernels' JSON record: each kernel's `launches`
 counts the path named by its `launches_path` (training for the kernels the
 UNet runs, the glue probe for the four that only the fused block runs, the
 ResBlock probe for the fused GroupNorm, the variants probe for v1-v4),
-`launches_by_path` holds every path's count. The last line is
+`launches_by_path` holds every path's count, and the two flash kernels carry
+`kernel_route`, the route of their recorded case. The last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -182,6 +191,56 @@ def reset(*fns) -> None:
             f.launches = 0
 
 
+# kernel-name fragments (lower case) → the groups of the device-time breakdown,
+# first match wins
+KERNEL_GROUPS = (
+    ("flash forward", ("flash_fwd",)),
+    ("flash backward", ("flash_bwd",)),
+    ("GEGLU kernels", ("geglu",)),
+    ("cuDNN convs", ("cudnn", "fprop", "dgrad", "wgrad", "conv", "winograd")),
+    ("cuBLAS", ("gemm", "gemv", "cublas", "cutlass")),
+    ("norm, softmax and other reductions", ("reduce", "norm", "softmax", "welford")),
+    ("elementwise and copies", ("elementwise", "vectorized", "copy", "fill", "cat", "index",
+                                "memcpy", "memset")),
+)
+
+
+def profile_groups(label: str, fn, path_s: float) -> None:
+    """One call of `fn` under torch.profiler (device activity only): logs the
+    device time, its share of `path_s` (the seconds the same call took
+    without the profiler, which slows the host several times over) and the
+    device milliseconds and launches of each kernel group."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    groups = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:  # older torch
+            us = ev.self_cuda_time_total
+        if us <= 0:  # the runtime's own calls
+            continue
+        name = ev.key.lower()
+        group = next((g for g, frags in KERNEL_GROUPS if any(f in name for f in frags)), "other")
+        ms, n = groups.get(group, (0.0, 0))
+        groups[group] = (ms + us / 1e3, n + ev.count)
+    device_ms = sum(ms for ms, _ in groups.values())
+    if device_ms <= 0:
+        log(f"[profile] {label}: the profiler recorded no device time: not measured")
+        return
+    parts = ", ".join(f"{g} {ms:.1f} ms ({n})" for g, (ms, n) in
+                      sorted(groups.items(), key=lambda kv: -kv[1][0]))
+    log(f"[profile] {label}: device time {device_ms:.1f} ms, {device_ms / 1e3 / path_s:.3f} of "
+        f"the {path_s:.3f} s the call takes ({wall:.3f} s under the profiler); by kernel group, "
+        f"ms (launches): {parts}")
+
+
 class SyntheticBatches:
     """Seg-capable training micro-batches made from a seed: a smooth image
     with noise in [-1, 1], a text box mask, one segmentation channel per
@@ -247,6 +306,7 @@ def main() -> None:
         flash_attention_bwd,
         flash_attention_bwd_ref,
         flash_attention_ref,
+        flash_kernel_route,
     )
     from udifftext_tpu_torch.ops.cross_attention import (
         fused_cross_attention,
@@ -291,15 +351,24 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.load_library()
     log(f"[build] {_build.library_path().name} in {time.perf_counter() - t0:.2f} s")
-    kernel = ""
+    kernel, mma_kernels = "", set()
     for line in _build.library_path().with_suffix(".log").read_text().splitlines():
-        m = re.search(r"entry function '\w*?((?:flash_fwd|flash_bwd_dq|flash_bwd_dkdv|geglu_wmma"
+        m = re.search(r"entry function '\w*?((?:flash_fwd_mma|flash_bwd_dq_mma|flash_bwd_dkdv_mma"
+                      r"|flash_fwd|flash_bwd_dq|flash_bwd_dkdv|geglu_wmma"
                       r"|geglu_simt|geglu_reduce|ln_gemm|cross_attn|gn_stats|gn_apply"
                       r"|flash_variant)_kernel)(\w*)'", line)
         if m:
             kernel = m.group(1) + m.group(2).replace("__nv_bfloat16", "bf16")
         elif "spill stores" in line or "registers" in line:
             log(f"[ptxas] {kernel}: {line.split(':', 1)[-1].strip()}")
+            if "_mma_" in kernel and "spill stores" in line:
+                mma_kernels.add(kernel)
+                if "0 bytes spill stores, 0 bytes spill loads" not in line:
+                    fail(f"{kernel} spills registers: {line.strip()}")
+        elif "wgmma" in line and "serialized" in line:
+            fail(f"the compiler serialized a wgmma pipeline: {line.strip()}")
+    if len(mma_kernels) != 3:
+        fail(f"the build log names {sorted(mma_kernels)}, not the three tensor-core flash kernels")
     for dtype, pairs in TILE_MENU.items():
         for bq, bk in pairs:
             log(f"[smem] flash_variant {dtype} tiles ({bq}, {bk}): "
@@ -313,14 +382,18 @@ def main() -> None:
         return (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
 
     records = {}
-    flash_cases = [  # (label, B, N, heads, dtype): ds1/ds2 self-attention
-        ("ds1 B=2", 2, 4096, 5, torch.bfloat16), ("ds1 B=20", 20, 4096, 5, torch.bfloat16),
-        ("ds2 B=2", 2, 1024, 10, torch.bfloat16), ("ds2 B=20", 20, 1024, 10, torch.bfloat16),
-        ("ds2 B=2 fp32", 2, 1024, 10, torch.float32),
+    flash_cases = [  # (label, B, N, heads, d, dtype): ds1/ds2 self-attention
+        ("ds1 B=2", 2, 4096, 5, 64, torch.bfloat16), ("ds1 B=20", 20, 4096, 5, 64, torch.bfloat16),
+        ("ds2 B=2", 2, 1024, 10, 64, torch.bfloat16),
+        ("ds2 B=20", 20, 1024, 10, 64, torch.bfloat16),
+        ("ds1 B=32", 32, 4096, 5, 64, torch.bfloat16),  # the glue probe's shape
+        ("ds2 B=2 fp32", 2, 1024, 10, 64, torch.float32),
+        ("(1, 512, 2, 128) bf16", 1, 512, 2, 128, torch.bfloat16),
     ]
-    for label, b, n, h, dtype in flash_cases:
-        q, k, v = (randn(b, n, h, 64, dtype=dtype) for _ in range(3))
+    for label, b, n, h, d, dtype in flash_cases:
+        q, k, v = (randn(b, n, h, d, dtype=dtype) for _ in range(3))
         out, lse = flash_attention(q, k, v)
+        route = flash_attention.last_route
         ref, ref_lse = flash_attention_ref(q, k, v)
         torch.cuda.synchronize()
         err = float((out.float() - ref.float()).abs().max())
@@ -331,14 +404,18 @@ def main() -> None:
         # the one PyTorch call for the same function, on (B, H, N, D) views of the same tensors
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt))
-        flops = 4 * b * h * n * n * 64
+        flops = 4 * b * h * n * n * d
         note = record(records, "flash_attention", label, err, ms, plain_ms,
                       bound_ms(flops, nbytes(q, k, v, out, lse), dtype), lib_ms)
-        log(f"[flash] {label}: max_abs_err {err:.3e} (tol {tol:.3e}), lse err {lse_err:.3e} "
-            f"(tol 1e-4); kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+        records["flash_attention"].setdefault("kernel_route", route)
+        log(f"[flash] {label}: route {route}; max_abs_err {err:.3e} (tol {tol:.3e}), lse err "
+            f"{lse_err:.3e} (tol 1e-4); kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
             f"plain {plain_ms:.3f} ms, {note}")
         if not (err <= tol and lse_err <= 1e-4):
             fail(f"flash {label} disagrees with its plain version")
+        if route != flash_kernel_route(dtype, d) or (route == "mma") != (
+                dtype == torch.bfloat16 and d == 64):
+            fail(f"flash {label} was served by the {route} route")
         del q, k, v, out, ref, lse, ref_lse, qt, kt, vt
 
     geglu_cases = [  # (label, rows, C, dtype): ds1/ds2/ds4 feed-forwards
@@ -379,6 +456,7 @@ def main() -> None:
         q, k, v, do = (randn(b, n, h, 64, dtype=dtype) for _ in range(4))
         out, lse = flash_attention(q, k, v)
         got = flash_attention_bwd(q, k, v, out, lse, do)
+        route = flash_attention_bwd.last_route
         torch.cuda.synchronize()
         want = flash_attention_bwd_ref(q, k, v, out, lse, do)
         errs = [float((g_.float() - w_.float()).abs().max()) for g_, w_ in zip(got, want)]
@@ -386,7 +464,8 @@ def main() -> None:
         del got, want
         ms = time_ms(lambda: flash_attention_bwd(q, k, v, out, lse, do))
         plain_ms = time_ms(lambda: flash_attention_bwd_ref(q, k, v, out, lse, do), reps=3)
-        flops = 10 * b * h * n * n * 64  # 5 products of N×N×d (the TPU kernel's count)
+        # 5 products of N×N×d (the TPU kernel's count; the two passes here do 7)
+        flops = 10 * b * h * n * n * 64
         # the library's backward of the same function: autograd through torch's fused attention
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
         lib_out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)
@@ -396,11 +475,14 @@ def main() -> None:
         moved = nbytes(q, k, v, out, do, lse) + nbytes(q, k, v)  # dq, dk, dv written
         note = record(records, "flash_attention_bwd", label, max(errs), ms, plain_ms,
                       bound_ms(flops, moved, dtype), lib_ms)
-        log(f"[flash_bwd] {label}: max_abs_err dq/dk/dv "
+        records["flash_attention_bwd"].setdefault("kernel_route", route)
+        log(f"[flash_bwd] {label}: route {route}; max_abs_err dq/dk/dv "
             f"{' / '.join(f'{e:.3e}' for e in errs)} (tol {' / '.join(f'{t:.3e}' for t in tols)}); "
             f"kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, {note}")
         if not all(e <= t for e, t in zip(errs, tols)):
             fail(f"flash backward {label} disagrees with its plain version")
+        if route != ("mma" if dtype == torch.bfloat16 else "fma"):
+            fail(f"flash backward {label} was served by the {route} route")
         del q, k, v, do, out, lse, qt, kt, vt, lib_out, dot
         torch.cuda.empty_cache()
 
@@ -711,7 +793,7 @@ def main() -> None:
                           noise_search_batched=True)
     by_path = {}
     seconds = []
-    for run in range(2):
+    for run in range(4):  # the first builds caches; the spread of the rest is the host's
         reset(*kernel_fns)
         torch.cuda.reset_peak_memory_stats(dev)
         torch.cuda.synchronize()
@@ -735,7 +817,12 @@ def main() -> None:
             fail(f"kernel launches {launches}, expected {want} (ds1+ds2 self-attention; "
                  "ds1/ds2/ds4 feed-forwards; no backward when sampling)")
     by_path["demo"] = launches
-    log(f"[demo] output mean {float(images.mean()):.4f} std {float(images.std()):.4f}")
+    log(f"[demo] output mean {float(images.mean()):.4f} std {float(images.std()):.4f}; s per "
+        f"sample after the first run: median {statistics.median(seconds[1:]):.3f}, "
+        f"min {min(seconds[1:]):.3f}, max {max(seconds[1:]):.3f}")
+    profile_groups("demo, one sample",
+                   lambda: predictor(batch, torch.Generator(dev).manual_seed(9)),
+                   statistics.median(seconds[1:]))
 
     # 7. the demo flow with attend-and-excite and middle-step map capture
     # (run here, on phase 5's engine, so that phase 6 measures its own peak)
@@ -775,7 +862,16 @@ def main() -> None:
                                                  geglu_ff=evals * 15)):
         fail(f"AAE launches {launches}: expected ≥ 50 gradient evaluations, each with 10 "
              "flash forwards and backwards and 15 GEGLU forwards, besides the 52 sampling evals")
-    del bundle, predictor, images, aux, maps
+    short = Predictor(bundle.engine, num_steps=5, cfg_scale=4.0, noise_iters=10,
+                      aae_enabled=True, detailed=True, noise_search_batched=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    short(batch, torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    profile_groups("AAE demo cut to 5 steps",
+                   lambda: short(batch, torch.Generator(dev).manual_seed(0)),
+                   time.perf_counter() - t0)
+    del bundle, predictor, short, images, aux, maps
     torch.cuda.empty_cache()
 
     # 6. the fine-tuning step at full width
@@ -837,6 +933,11 @@ def main() -> None:
                     geglu_ff=micro * 15)
     if launches != want:
         fail(f"training launches {launches}, predicted {want}")
+    with tempfile.TemporaryDirectory(prefix="udt_train_") as log_dir:
+        one = {"batch_size": micro_b, "base_learning_rate": 5e-5, "log_dir": log_dir,
+               "lightning": {"accumulate_grad_batches": accum, "max_epochs": 1}}
+        profile_groups(f"one optimizer step ({accum}×{micro_b})",
+                       lambda: train(one, batches, bundle, seed=1, log_every=1), step_s[-1])
     mb = {k: torch.as_tensor(v).to(dev) for k, v in batches.batches[0].items()}
     eps = torch.zeros(micro_b, 64, 64, 4, device=dev)
     with torch.no_grad():

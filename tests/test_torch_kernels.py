@@ -9,7 +9,11 @@ bf16 ulps of the largest reference value (one rounding of the output).
 Gradients through autograd against the plain versions' autograd: bf16
 within four ulps of the largest gradient (the kernel's delta reads the
 bf16-rounded output, the plain softmax backward the fp32 one), fp32 1e-4
-of the largest gradient. The fused GroupNorm under a common offset of
+of the largest gradient. The tensor-core flash kernels ("mma" route) against
+the tiled references that walk their tiles with their roundings: one bf16
+ulp of the largest reference value (2**-8 of it, half the tolerance against
+the plain versions: only the final rounding can fall the other way), 1e-5
+for lse. The fused GroupNorm under a common offset of
 1000: 1e-3 absolute (fp32 values there are 6e-5 apart and the two sides sum
 their means in different orders)."""
 
@@ -21,7 +25,9 @@ from udifftext_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_ref,
+    flash_attention_bwd_tiled_ref,
     flash_attention_ref,
+    flash_attention_tiled_ref,
 )
 from udifftext_tpu_torch.models.attention import BasicTransformerBlock
 from udifftext_tpu_torch.models.layers import cast_weights
@@ -154,6 +160,108 @@ def test_flash_bwd_rejects_what_it_does_not_take(gen):
         flash_attention_bwd(q, q, q, out, lse, out.transpose(-1, -2).contiguous().transpose(-1, -2))
     with pytest.raises(TypeError):
         flash_attention_bwd(q.half(), q.half(), q.half(), out.half(), lse, out.half())
+
+
+def _mma_case(gen, b, nq, nk, h, scales=(1.0, 1.0, 1.0)):
+    """bf16, d = 64 inputs q, k, v, dout: the tensor-core route's."""
+    shapes = ((b, nq, h, 64), (b, nk, h, 64), (b, nk, h, 64), (b, nq, h, 64))
+    return [(torch.randn(*s, generator=gen, device="cuda") * sc).bfloat16()
+            for s, sc in zip(shapes, (*scales, 1.0))]
+
+
+# (B, Nq, Nk, H, scale, input scales of q, k, v); the last drives logits far beyond ±75
+MMA_CASES = [
+    (3, 1024, 1024, 5, None, (1.0, 1.0, 1.0)),
+    (2, 1024, 512, 4, None, (1.0, 1.0, 1.0)),
+    (1, 512, 4096, 5, None, (1.0, 1.0, 1.0)),
+    (2, 192, 320, 3, None, (1.0, 1.0, 1.0)),   # N % 128 == 64: the last block's second half idle
+    (2, 1024, 1024, 4, 0.3, (1.0, 1.0, 1.0)),
+    (1, 512, 512, 2, None, (9.0, 2.4, 0.3)),
+]
+MMA_IDS = ["B3_H5", "nq1024_nk512", "nq512_nk4096", "nq192_nk320", "scale0.3", "hot"]
+
+
+@pytest.mark.parametrize("b,nq,nk,h,scale,scales", MMA_CASES, ids=MMA_IDS)
+def test_flash_mma_matches_plain_and_tiled(gen, b, nq, nk, h, scale, scales):
+    q, k, v, _ = _mma_case(gen, b, nq, nk, h, scales)
+    out, lse = flash_attention(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert flash_attention.last_route == "mma"
+    ref, ref_lse = flash_attention_ref(q, k, v, scale)
+    _check(out, ref)
+    assert float((lse - ref_lse).abs().max()) <= 1e-4
+    if scales[0] > 1:  # where a softmax clamped at ±75 would differ
+        assert float(torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()).abs().max()) / 8 > 80
+    tiled, tiled_lse = flash_attention_tiled_ref(q, k, v, scale)
+    assert float((out.float() - tiled.float()).abs().max()) <= _tol(tiled) / 2
+    assert float((lse - tiled_lse).abs().max()) <= 1e-5 * max(1.0, float(tiled_lse.abs().max()))
+
+
+@pytest.mark.parametrize("b,nq,nk,h,scale,scales", MMA_CASES, ids=MMA_IDS)
+def test_flash_bwd_mma_matches_plain_and_tiled(gen, b, nq, nk, h, scale, scales):
+    q, k, v, do = _mma_case(gen, b, nq, nk, h, scales)
+    out, lse = flash_attention(q, k, v, scale)
+    got = flash_attention_bwd(q, k, v, out, lse, do, scale)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.last_route == "mma"
+    want = flash_attention_bwd_ref(q, k, v, out, lse, do, scale)
+    tiled = flash_attention_bwd_tiled_ref(q, k, v, out, lse, do, scale)
+    for g, w, t in zip(got, want, tiled):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        top = float(w.float().abs().max())
+        assert float((g.float() - w.float()).abs().max()) <= 2**-7 * top
+        assert float((g.float() - t.float()).abs().max()) <= 2**-8 * top
+
+
+def test_flash_strided_views_take_the_mma_route(gen):
+    qkv = torch.randn(2, 1024, 3, 4, 64, generator=gen, device="cuda").bfloat16()
+    q, k, v = qkv.unbind(2)
+    do = torch.randn(2, 1024, 8, 64, generator=gen, device="cuda").bfloat16()[:, :, ::2]
+    out, lse = flash_attention(q, k, v)
+    assert flash_attention.last_route == "mma"
+    flash_attention_bwd(q, k, v, out, lse, do)
+    assert flash_attention_bwd.last_route == "mma"
+    q32 = torch.randn(1, 512, 2, 64, generator=gen, device="cuda")
+    flash_attention(q32, q32, q32)
+    assert flash_attention.last_route == "fma"
+    q128 = torch.randn(1, 512, 2, 128, generator=gen, device="cuda").bfloat16()
+    flash_attention(q128, q128, q128)
+    assert flash_attention.last_route == "fma"
+
+
+def test_flash_mma_refuses_unaligned_views(gen):
+    flat = torch.randn(2 * 512 * 2 * 64 + 8, generator=gen, device="cuda").bfloat16()
+    ok = flat[8:].view(2, 512, 2, 64)       # 16 bytes into the buffer
+    off8 = flat[4:-4].view(2, 512, 2, 64)   # 8 bytes in: no 16-byte copies
+    out, lse = flash_attention(ok, ok, ok)
+    _check(out, flash_attention_ref(ok, ok, ok)[0])
+    before = (flash_attention.launches, flash_attention_bwd.launches)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(off8, ok, ok)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(ok, ok, off8)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_bwd(ok, ok, ok, out, lse, off8)
+    narrow = torch.randn(2, 512, 2, 68, generator=gen, device="cuda").bfloat16()[..., :64]
+    with pytest.raises(ValueError, match="16-byte"):  # a token stride of 68 elements
+        flash_attention(narrow, narrow, narrow)
+    assert (flash_attention.launches, flash_attention_bwd.launches) == before
+    # the same views in fp32 go to the FMA kernels, which take any alignment
+    off8_32 = flat.float()[1:-7].view(2, 512, 2, 64)
+    _check(flash_attention(off8_32, off8_32, off8_32)[0],
+           flash_attention_ref(off8_32, off8_32, off8_32)[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_is_deterministic(gen, dtype):
+    q, k, v, do = (torch.randn(2, 1024, 5, 64, generator=gen, device="cuda").to(dtype)
+                   for _ in range(4))
+    out, lse = flash_attention(q, k, v)
+    out2, lse2 = flash_attention(q, k, v)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    first = flash_attention_bwd(q, k, v, out, lse, do)
+    second = flash_attention_bwd(q, k, v, out, lse, do)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -1,6 +1,6 @@
 // Flash-attention backward for Hopper (sm_90a): dq, dk, dv of the
 // non-causal, unmasked softmax(q·kᵀ·scale)·v, recomputing p from the LSE
-// the forward saved, with fp32 arithmetic and accumulation.
+// the forward saved, with fp32 accumulation.
 //
 // Replaces: udifftext_tpu/ops/flash_attention.py `_flash_bwd_impl` /
 // `_flash_bwd_kernel` (the Pallas TPU kernel behind the custom_vjp).
@@ -15,33 +15,63 @@
 // clamped at ±75 and zeroed ds where the clamp bound; this kernel has no
 // clamp. The two agree wherever |logits| < 75.
 //
-// What bounds it on the H100: like the forward it is compute-bound at the
-// UNet's shapes (N = 1024 or 4096, d = 64): 7 products of 64×64×d per pair
-// of 64-row tiles against the forward's 2. This first version does them
-// with fp32 FMAs from shared memory (no tensor cores); wgmma/TMA tiles are
-// later work.
-//
-// Design: the TPU kernel summed dq over its sequential grid axis in a VMEM
-// scratch. CUDA blocks run in no order, so the work is split into two
-// passes that each own their outputs (deterministic, no atomics), both
-// recomputing p:
-//   1. dq pass: one block per (64-row q tile, batch·head) walks the key
-//      tiles. It also writes delta for its rows (dO and O are read once).
-//   2. dk/dv pass: one block per (64-key tile, batch·head) walks the q
+// What bounds it on the H100: operations, as in the forward, at the UNet's
+// shapes (N = 1024 or 4096, d = 64). The TPU kernel summed dq over its
+// sequential grid axis in a VMEM scratch. CUDA blocks run in no order, so
+// the work is split into two passes that each own their outputs
+// (deterministic, no atomics: training stays bit-reproducible), both
+// recomputing p. That makes seven N×N×d products where one pass would do
+// five, and two exponentials per score.
+//   1. dq pass: one block per (query rows, batch·head) walks the key tiles.
+//      It also writes delta for its rows (dO and O are read once).
+//   2. dk/dv pass: one block per (key rows, batch·head) walks the query
 //      tiles, reading lse and the delta of pass 1.
-// Tiles are staged in shared memory as fp32 with rows padded to d + 1
-// (column reads without bank conflicts); a thread owns 4 rows × 4 columns
-// of a 64×64 score tile and 4 rows × d/16 columns of its gradient rows.
-// (B, N, H, D) is read through its strides; the last dimension must be
-// contiguous. Shared memory: pass 1 (4·64·(d+1) + 64·65 + 128)·4 bytes
-// (84 KB at d = 64, 149 KB at d = 128), pass 2 (4·64·(d+1) + 2·64·65 +
-// 128)·4 bytes (100 KB at d = 64, 166 KB at d = 128).
+// (B, N, H, D) is read through its strides.
+//
+// Two sets of kernels, chosen by the wrapper (ops/flash_attention.py
+// `flash_kernel_route`), as in the forward (flash_attention.cu):
+//
+// "mma": bf16, d = 64. All seven products are `wgmma` m64n64k16 from
+// 128-byte swizzled tiles (csrc/flash_mma.cuh); s, dP, p and ds live in
+// accumulator registers only, p and ds are rounded to bf16 there and are
+// the A operand of the product that follows. Blocks of 256 threads: two
+// warpgroups of 64 rows; 64-row tiles come through a 4-stage `cp.async`
+// ring with one `__syncthreads()` per tile.
+//   - Pass 1, 128 query rows a block: Q and dO are loaded once; per key
+//     tile S = Q·Kᵀ and dP = dO·Vᵀ (K-major operands), ds from the lse and
+//     delta of the thread's two rows held in registers, dq += ds·K with the
+//     K tile read MN-major where it lies. Shared memory 32 KB + 4 × 16 KB
+//     + 0.5 KB = 97 KB.
+//   - Pass 2, 128 key rows a block: K and V are loaded once and are the A
+//     operands of the transposed tiles Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ, so that pᵀ
+//     and dsᵀ come out with keys as rows: the A operand that dv += pᵀ·dO and
+//     dk += dsᵀ·Q need, with dO and Q read MN-major from the ring. Nothing
+//     is transposed through shared memory. lse and delta belong to a
+//     fragment's columns here: the 2 × 64 floats of a query tile ride in
+//     the ring beside it. Shared memory 32 KB + 4 × 16.5 KB = 98 KB.
+//   Pass 1 holds three 64×64 fp32 fragments a thread and pass 2 four; both
+//   take one block an SM (127 and 168 registers a thread, no spill, nvcc
+//   12.8; two blocks an SM or a 3-stage ring made no difference beyond the
+//   noise). Gradients leave through the block's own tiles as 16-byte stores,
+//   rounded once.
+//
+// "fma": fp32, and bf16 with d = 128: fp32 FMAs from fp32 tiles in shared
+// memory with rows padded to d + 1; a thread owns 4 rows × 4 columns of a
+// 64×64 score tile, which crosses shared memory between the products.
+// Shared memory: pass 1 (4·64·(d+1) + 64·65 + 128)·4 bytes (84 KB at d = 64,
+// 149 KB at d = 128), pass 2 (4·64·(d+1) + 2·64·65 + 128)·4 bytes (100 KB,
+// 166 KB).
 
 #include <math.h>
 
+#include <type_traits>
+
 #include "common.cuh"
+#include "flash_mma.cuh"
 
 namespace {
+
+// ---- shared by both routes, then the fp32-FMA kernels ("fma") ----
 
 constexpr int kB = 64;        // rows per tile, queries and keys alike
 constexpr int kP = kB + 1;    // padded row length of the 64×64 score tiles
@@ -316,10 +346,291 @@ cudaError_t launch_bwd(const BwdParams<T>& p, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---- the tensor-core kernels ("mma": bf16, d = 64) ----
+
+constexpr int kMmaRows = 128;    // rows a block owns: two warpgroups
+constexpr int kMmaThreads = 256;
+constexpr int kMmaStages = 4;
+using bf16 = __nv_bfloat16;
+
+constexpr size_t dq_mma_smem_bytes() {
+  return 1024 + 2 * kMmaRows * udt::mma::kRowBytes + kMmaStages * 2 * udt::mma::kTileBytes +
+         kMmaRows * sizeof(float);
+}
+
+constexpr size_t dkdv_mma_smem_bytes() {
+  return 1024 + 2 * kMmaRows * udt::mma::kRowBytes +
+         kMmaStages * (2 * udt::mma::kTileBytes + 2 * udt::mma::kTile * sizeof(float));
+}
+
+// Σ of the eight products of two 16-byte groups of bf16.
+__device__ __forceinline__ float dot8(const uint4& a, const uint4& b) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 xf = __bfloat1622float2(x[i]), yf = __bfloat1622float2(y[i]);
+    acc = fmaf(xf.x, yf.x, acc);
+    acc = fmaf(xf.y, yf.y, acc);
+  }
+  return acc;
+}
+
+// Pass 1: dq (and delta) for 128 query rows.
+__global__ void __launch_bounds__(kMmaThreads, 1)
+flash_bwd_dq_mma_kernel(BwdParams<bf16> p, float scale_log2) {
+  namespace m = udt::mma;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = m::align_smem(smem_raw);
+  const uint32_t q_tile = m::smem_u32(smem);                       // [128][64]
+  const uint32_t g_tile = q_tile + kMmaRows * m::kRowBytes;        // dO [128][64]
+  const uint32_t ring = g_tile + kMmaRows * m::kRowBytes;          // stages × (K | V)
+  float* delta_s = reinterpret_cast<float*>(smem + 2 * kMmaRows * m::kRowBytes +
+                                            kMmaStages * 2 * m::kTileBytes);  // [128]
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int wg = tid / m::kWarpgroup, wg_thread = tid % m::kWarpgroup;
+  const int bh = blockIdx.y;
+  const int b = bh / p.H, h = bh - b * p.H;
+  const int q0 = blockIdx.x * kMmaRows;
+  const int rows_valid = min(kMmaRows, p.Nq - q0);
+  const bf16* qb = p.q + head_offset(p, kQ, b, h) + (long long)q0 * p.st[kQ][1];
+  const bf16* ob = p.o + head_offset(p, kO, b, h) + (long long)q0 * p.st[kO][1];
+  const bf16* gb = p.dout + head_offset(p, kDO, b, h) + (long long)q0 * p.st[kDO][1];
+  const bf16* kb = p.k + head_offset(p, kK, b, h);
+  const bf16* vb = p.v + head_offset(p, kV, b, h);
+  const int tiles = p.Nk / m::kTile;
+
+  auto load_kv = [&](int tile) {
+    const uint32_t stage = ring + (tile % kMmaStages) * 2 * m::kTileBytes;
+    const long long row = (long long)tile * m::kTile;
+    m::load_rows_async<m::kTile, kMmaThreads>(stage, kb + row * p.st[kK][1], p.st[kK][1],
+                                              m::kTile);
+    m::load_rows_async<m::kTile, kMmaThreads>(stage + m::kTileBytes, vb + row * p.st[kV][1],
+                                              p.st[kV][1], m::kTile);
+  };
+
+  m::load_rows_async<kMmaRows, kMmaThreads>(q_tile, qb, p.st[kQ][1], rows_valid);
+  m::load_rows_async<kMmaRows, kMmaThreads>(g_tile, gb, p.st[kDO][1], rows_valid);
+#pragma unroll
+  for (int t = 0; t < kMmaStages - 1; ++t) {
+    if (t < tiles) load_kv(t);
+    m::cp_async_commit();
+  }
+
+  // delta = rowsum(dO ⊙ O): two threads a row, 32 columns each
+  {
+    const int row = tid >> 1, half = tid & 1;
+    float acc = 0.f;
+    if (row < rows_valid) {
+      const uint4* g4 = reinterpret_cast<const uint4*>(gb + row * p.st[kDO][1] + half * 32);
+      const uint4* o4 = reinterpret_cast<const uint4*>(ob + row * p.st[kO][1] + half * 32);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc += dot8(g4[i], o4[i]);
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (half == 0) {
+      delta_s[row] = acc;
+      if (row < rows_valid) p.delta[(long long)bh * p.Nq + q0 + row] = acc;
+    }
+  }
+  __syncthreads();
+  const int r = wg * m::kTile + (wg_thread >> 5) * 16 + (lane >> 2);  // row in the block
+  const float* lse_b = p.lse + (long long)bh * p.Nq + q0;
+  const float lse0 = r < rows_valid ? lse_b[r] * m::kLog2e : 0.f;
+  const float lse1 = r + 8 < rows_valid ? lse_b[r + 8] * m::kLog2e : 0.f;
+  const float delta0 = delta_s[r], delta1 = delta_s[r + 8];
+
+  float dq[32], s[32], dp[32];
+  uint32_t a[16];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+  const uint32_t q_wg = q_tile + wg * m::kTileBytes, g_wg = g_tile + wg * m::kTileBytes;
+
+  for (int j = 0; j < tiles; ++j) {
+    m::cp_async_wait<kMmaStages - 2>();  // this thread's copies of tile j have landed
+    m::fence_proxy_async();
+    __syncthreads();                     // everyone's have, and tile j − 1 is no longer read
+    if (j + kMmaStages - 1 < tiles) load_kv(j + kMmaStages - 1);
+    m::cp_async_commit();
+    const uint32_t k_tile = ring + (j % kMmaStages) * 2 * m::kTileBytes;
+
+    m::wgmma_fence();
+    m::tile_product_ss(s, q_wg, k_tile, false);
+    m::tile_product_ss(dp, g_wg, k_tile + m::kTileBytes, false);
+    m::wgmma_commit();
+    m::wgmma_wait<0>();
+    m::fence_accumulator(s);
+    m::fence_accumulator(dp);
+
+#pragma unroll
+    for (int i = 0; i < 32; i += 4) {
+      s[i] = m::exp2_approx(fmaf(s[i], scale_log2, -lse0)) * (dp[i] - delta0);
+      s[i + 1] = m::exp2_approx(fmaf(s[i + 1], scale_log2, -lse0)) * (dp[i + 1] - delta0);
+      s[i + 2] = m::exp2_approx(fmaf(s[i + 2], scale_log2, -lse1)) * (dp[i + 2] - delta1);
+      s[i + 3] = m::exp2_approx(fmaf(s[i + 3], scale_log2, -lse1)) * (dp[i + 3] - delta1);
+    }
+    m::pack_a_fragments(s, a);
+
+    m::fence_accumulator(dq);
+    m::wgmma_fence();
+    m::tile_product_rs(dq, a, k_tile);
+    m::wgmma_commit();
+    m::wgmma_wait<0>();
+    m::fence_accumulator(dq);
+  }
+
+  m::store_accumulator(dq, p.scale, p.scale, smem + wg * m::kTileBytes,
+                       p.dq + head_offset(p, kDQ, b, h) +
+                           (long long)(q0 + wg * m::kTile) * p.st[kDQ][1],
+                       p.st[kDQ][1], rows_valid - wg * m::kTile, wg_thread, 1 + wg);
+}
+
+// Pass 2: dk and dv for 128 key rows.
+__global__ void __launch_bounds__(kMmaThreads, 1)
+flash_bwd_dkdv_mma_kernel(BwdParams<bf16> p, float scale_log2) {
+  namespace m = udt::mma;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = m::align_smem(smem_raw);
+  const uint32_t k_tile = m::smem_u32(smem);                       // [128][64]
+  const uint32_t v_tile = k_tile + kMmaRows * m::kRowBytes;        // [128][64]
+  const uint32_t ring = v_tile + kMmaRows * m::kRowBytes;          // stages × (Q | dO)
+  constexpr int kAuxOffset = 2 * kMmaRows * m::kRowBytes + kMmaStages * 2 * m::kTileBytes;
+  // stages × (lse | delta) of the ring's query tiles
+  const float* aux_s = reinterpret_cast<const float*>(smem + kAuxOffset);
+  const uint32_t aux = k_tile + kAuxOffset;
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int wg = tid / m::kWarpgroup, wg_thread = tid % m::kWarpgroup;
+  const int bh = blockIdx.y;
+  const int b = bh / p.H, h = bh - b * p.H;
+  const int k0 = blockIdx.x * kMmaRows;
+  const int rows_valid = min(kMmaRows, p.Nk - k0);
+  const bf16* qb = p.q + head_offset(p, kQ, b, h);
+  const bf16* gb = p.dout + head_offset(p, kDO, b, h);
+  const float* lse_b = p.lse + (long long)bh * p.Nq;
+  const float* delta_b = p.delta + (long long)bh * p.Nq;
+  const int tiles = p.Nq / m::kTile;
+
+  auto load_q = [&](int tile) {
+    const int st = tile % kMmaStages;
+    const uint32_t stage = ring + st * 2 * m::kTileBytes;
+    const long long row = (long long)tile * m::kTile;
+    m::load_rows_async<m::kTile, kMmaThreads>(stage, qb + row * p.st[kQ][1], p.st[kQ][1],
+                                              m::kTile);
+    m::load_rows_async<m::kTile, kMmaThreads>(stage + m::kTileBytes, gb + row * p.st[kDO][1],
+                                              p.st[kDO][1], m::kTile);
+    // lse by threads 0-15, delta by threads 16-31
+    const uint32_t dst = aux + st * 2 * m::kTile * sizeof(float);
+    if (tid < 16) m::cp_async16(dst + tid * 16, lse_b + row + tid * 4);
+    else if (tid < 32) m::cp_async16(dst + tid * 16, delta_b + row + (tid - 16) * 4);
+  };
+
+  m::load_rows_async<kMmaRows, kMmaThreads>(
+      k_tile, p.k + head_offset(p, kK, b, h) + (long long)k0 * p.st[kK][1], p.st[kK][1],
+      rows_valid);
+  m::load_rows_async<kMmaRows, kMmaThreads>(
+      v_tile, p.v + head_offset(p, kV, b, h) + (long long)k0 * p.st[kV][1], p.st[kV][1],
+      rows_valid);
+#pragma unroll
+  for (int t = 0; t < kMmaStages - 1; ++t) {
+    if (t < tiles) load_q(t);
+    m::cp_async_commit();
+  }
+
+  float dk[32], dv[32], s[32], dp[32];
+  uint32_t ap[16], ads[16];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+  const uint32_t k_wg = k_tile + wg * m::kTileBytes, v_wg = v_tile + wg * m::kTileBytes;
+
+  for (int j = 0; j < tiles; ++j) {
+    m::cp_async_wait<kMmaStages - 2>();  // this thread's copies of tile j have landed
+    m::fence_proxy_async();
+    __syncthreads();                     // everyone's have, and tile j − 1 is no longer read
+    if (j + kMmaStages - 1 < tiles) load_q(j + kMmaStages - 1);
+    m::cp_async_commit();
+    const int st = j % kMmaStages;
+    const uint32_t q_stage = ring + st * 2 * m::kTileBytes;
+    const float* lse_s = aux_s + st * 2 * m::kTile;
+    const float* delta_s = lse_s + m::kTile;
+
+    // the transposed tiles: rows are this warpgroup's keys, columns the queries
+    m::wgmma_fence();
+    m::tile_product_ss(s, k_wg, q_stage, false);
+    m::tile_product_ss(dp, v_wg, q_stage + m::kTileBytes, false);
+    m::wgmma_commit();
+    m::wgmma_wait<0>();
+    m::fence_accumulator(s);
+    m::fence_accumulator(dp);
+
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int col = 8 * jj + 2 * (lane & 3);
+      const float2 l2 = *reinterpret_cast<const float2*>(lse_s + col);
+      const float2 dl = *reinterpret_cast<const float2*>(delta_s + col);
+      const float la = l2.x * m::kLog2e, lb = l2.y * m::kLog2e;
+      const int i = 4 * jj;
+      s[i] = m::exp2_approx(fmaf(s[i], scale_log2, -la));
+      s[i + 1] = m::exp2_approx(fmaf(s[i + 1], scale_log2, -lb));
+      s[i + 2] = m::exp2_approx(fmaf(s[i + 2], scale_log2, -la));
+      s[i + 3] = m::exp2_approx(fmaf(s[i + 3], scale_log2, -lb));
+      dp[i] = s[i] * (dp[i] - dl.x);
+      dp[i + 1] = s[i + 1] * (dp[i + 1] - dl.y);
+      dp[i + 2] = s[i + 2] * (dp[i + 2] - dl.x);
+      dp[i + 3] = s[i + 3] * (dp[i + 3] - dl.y);
+    }
+    m::pack_a_fragments(s, ap);
+    m::pack_a_fragments(dp, ads);
+
+    m::fence_accumulator(dv);
+    m::fence_accumulator(dk);
+    m::wgmma_fence();
+    m::tile_product_rs(dv, ap, q_stage + m::kTileBytes);  // dv += pᵀ·dO
+    m::tile_product_rs(dk, ads, q_stage);                 // dk += dsᵀ·Q
+    m::wgmma_commit();
+    m::wgmma_wait<0>();
+    m::fence_accumulator(dv);
+    m::fence_accumulator(dk);
+  }
+
+  const long long row0 = k0 + wg * m::kTile;
+  const int valid = rows_valid - wg * m::kTile;
+  m::store_accumulator(dk, p.scale, p.scale, smem + wg * m::kTileBytes,
+                       p.dk + head_offset(p, kDK, b, h) + row0 * p.st[kDK][1], p.st[kDK][1],
+                       valid, wg_thread, 1 + wg);
+  m::store_accumulator(dv, 1.f, 1.f, smem + kMmaRows * m::kRowBytes + wg * m::kTileBytes,
+                       p.dv + head_offset(p, kDV, b, h) + row0 * p.st[kDV][1], p.st[kDV][1],
+                       valid, wg_thread, 1 + wg);
+}
+
+cudaError_t launch_bwd_mma(const BwdParams<bf16>& p, int B, cudaStream_t stream) {
+  constexpr size_t smem_dq = dq_mma_smem_bytes();
+  constexpr size_t smem_dkdv = dkdv_mma_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_mma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem_dq);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dkdv_mma_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dkdv);
+  if (err != cudaSuccess) return err;
+  const float scale_log2 = p.scale * udt::mma::kLog2e;
+  flash_bwd_dq_mma_kernel<<<dim3((p.Nq + kMmaRows - 1) / kMmaRows, B * p.H), kMmaThreads, smem_dq,
+                            stream>>>(p, scale_log2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // same stream: pass 2 reads the delta pass 1 wrote
+  flash_bwd_dkdv_mma_kernel<<<dim3((p.Nk + kMmaRows - 1) / kMmaRows, B * p.H), kMmaThreads,
+                              smem_dkdv, stream>>>(p, scale_log2);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t run(const void* q, const void* k, const void* v, const void* o, const void* dout,
                 const void* lse, void* delta, void* dq, void* dk, void* dv, int B, int H, int Nq,
-                int Nk, int D, const long long* strides, float scale, cudaStream_t stream) {
+                int Nk, int D, const long long* strides, float scale, int route,
+                cudaStream_t stream) {
   BwdParams<T> p;
   p.q = static_cast<const T*>(q);
   p.k = static_cast<const T*>(k);
@@ -337,7 +648,13 @@ cudaError_t run(const void* q, const void* k, const void* v, const void* o, cons
   for (int t = 0; t < 8; ++t)
     for (int s = 0; s < 3; ++s) p.st[t][s] = strides[t * 3 + s];
   p.scale = scale;
-  return D == 64 ? launch_bwd<T, 64>(p, B, stream) : launch_bwd<T, 128>(p, B, stream);
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (route == 1) return D == 64 ? launch_bwd_mma(p, B, stream) : cudaErrorInvalidValue;
+    return D == 128 ? launch_bwd<T, 128>(p, B, stream) : cudaErrorInvalidValue;
+  } else {
+    if (route != 0) return cudaErrorInvalidValue;
+    return D == 64 ? launch_bwd<T, 64>(p, B, stream) : launch_bwd<T, 128>(p, B, stream);
+  }
 }
 
 }  // namespace
@@ -346,20 +663,23 @@ cudaError_t run(const void* q, const void* k, const void* v, const void* o, cons
 // stride on D; `strides` holds the (batch, token, head) element strides of
 // q, k, v, o, dout, dq, dk, dv in that order (24 values). lse: (B, H, Nq)
 // fp32 contiguous, from the forward. delta: (B, H, Nq) fp32 scratch. Nq and
-// Nk are multiples of 64. Returns cudaGetLastError() after the launches (or
-// the first failing call).
+// Nk are multiples of 64. route 1 ("mma"): bf16 with D = 64, every tensor on
+// a 16-byte boundary with strides that are multiples of 8 elements; route 0
+// ("fma"): fp32, or bf16 with D = 128. Returns cudaGetLastError() after the
+// launches (or the first failing call), cudaErrorInvalidValue for what the
+// route does not take.
 extern "C" int udt_flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                        const void* dout, const void* lse, void* delta, void* dq,
                                        void* dk, void* dv, int B, int H, int Nq, int Nk, int D,
                                        const long long* strides, float scale, int dtype,
-                                       void* stream) {
+                                       int route, void* stream) {
   if (Nq % kB != 0 || Nk % kB != 0 || (D != 64 && D != 128)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == udt::kBFloat16)
     return run<__nv_bfloat16>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, Nq, Nk, D, strides,
-                              scale, s);
+                              scale, route, s);
   if (dtype == udt::kFloat32)
     return run<float>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, Nq, Nk, D, strides, scale,
-                      s);
+                      route, s);
   return cudaErrorInvalidValue;
 }
