@@ -9,12 +9,17 @@ each printed on its own line:
 1. the card's name and power limit, as nvidia-smi prints them;
 2. the kernel build from udifftext_tpu_torch/csrc, with its time and the
    compiler's register and spill report of every kernel; it fails if a
-   tensor-core flash kernel spills or had its wgmma pipeline serialized;
+   tensor-core (`wgmma`) flash or GEGLU kernel spills or had its wgmma
+   pipeline serialized;
 3. each forward kernel against its plain PyTorch version on the same CUDA
    tensors, at the main path's shapes: max error against the stated
    tolerance and both times (CUDA events, median of repeated runs); each
    flash case names the kernel route that served it ("mma": tensor cores,
-   bf16 with d = 64; "fma": fp32, and bf16 with d = 128);
+   bf16 with d = 64; "fma": fp32, and bf16 with d = 128), each GEGLU case
+   its route ("mma": `wgmma` with staged weights, bf16 with C % 64 == 0;
+   "wmma"; "fma": fp32), its launch plan, its time when 20 calls are queued
+   back to back, and the module's plain composition and that composition's
+   two cuBLAS products alone as yardsticks beside the bound;
 3b. the flash backward kernel against its plain version at the training
    and attend-and-excite shapes and in fp32: max error of dq, dk, dv each
    against a tolerance scaled to that gradient's magnitude, both times and
@@ -43,6 +48,12 @@ each printed on its own line:
    flash/GEGLU call of the path; then one more sample under torch.profiler
    for the device time by kernel group (`[profile]`; likewise one optimizer
    step after phase 6 and an AAE run cut to 5 steps after phase 7);
+5b. the implementation switch: the engine built again with attn_impl="plain"
+   on the same seeded weights: one UNet eval at the demo's shapes (B=2,
+   bf16) under "auto" and under "plain", the kernel counters moving only in
+   the first and the outputs agreeing in relative L2; then a 5-step sample
+   under each, and under "auto" with only the feed-forwards forced plain,
+   timed (`[plain_ab] kernels … s, plain … s, …`);
 6. the fine-tuning step at full width (configs/train/textdesign_sd_2.yaml,
    held in builders.TEXTDESIGN_SD_2_TRAIN, seeded random weights;
    configs/train.yaml's batch_size 16 and accumulate_grad_batches 4) on
@@ -122,6 +133,23 @@ def time_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
+def back_to_back_ms(fn, n: int = 20) -> float:
+    """Milliseconds a call of `fn` takes when `n` are queued back to back
+    (one pair of CUDA events around them): the device's time for a kernel
+    whose single calls are dominated by the host's launch cost."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
 def bf16_tol(ref) -> float:
     """Two bf16 ulps of the largest reference value: one rounding of the
     kernel's output, with the plain version's own output rounding."""
@@ -136,6 +164,10 @@ def grad_tol(ref) -> float:
     return (2**-7 if ref.dtype == torch.bfloat16 else 1e-5) * float(ref.float().abs().max())
 
 
+# csrc/geglu.cu geglu_mma_kernel<NT, G, RG>: output tiles a warpgroup, warpgroups
+# over the same rows, row groups a block (C = 64·NT·G)
+GEGLU_MMA_SHAPES = ([(nt, 1, rg) for rg in (1, 2) for nt in (1, 2, 3, 4, 5)]
+                    + [(nt, g_, 1) for g_ in (2, 4) for nt in (3, 4, 5)])
 HBM_BYTES_PER_S = 3.35e12                          # H100 SXM
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}       # dense tensor cores; fp32 FMAs
 
@@ -298,7 +330,11 @@ def main() -> None:
         build_engine,
         randomize_parameters,
     )
-    from udifftext_tpu_torch.models.attention import BasicTransformerBlock, SpatialTransformer
+    from udifftext_tpu_torch.models.attention import (
+        BasicTransformerBlock,
+        GEGLUFeedForward,
+        SpatialTransformer,
+    )
     from udifftext_tpu_torch.models.layers import cast_weights
     from udifftext_tpu_torch.ops import _build
     from udifftext_tpu_torch.ops.flash_attention import (
@@ -320,7 +356,13 @@ def main() -> None:
         flash_variant_ref,
         smem_bytes,
     )
-    from udifftext_tpu_torch.ops.geglu import geglu_ff, geglu_ff_ln, geglu_ff_ln_ref, geglu_ff_ref
+    from udifftext_tpu_torch.ops.geglu import (
+        geglu_ff,
+        geglu_ff_ln,
+        geglu_ff_ln_ref,
+        geglu_ff_ref,
+        geglu_kernel_route,
+    )
     from udifftext_tpu_torch.ops.groupnorm import fused_groupnorm_silu, fused_groupnorm_silu_ref
     from udifftext_tpu_torch.ops.ln_gemm import ln_gemm, ln_gemm3, ln_gemm3_ref, ln_gemm_ref
     from udifftext_tpu_torch.predict import Predictor
@@ -354,7 +396,7 @@ def main() -> None:
     kernel, mma_kernels = "", set()
     for line in _build.library_path().with_suffix(".log").read_text().splitlines():
         m = re.search(r"entry function '\w*?((?:flash_fwd_mma|flash_bwd_dq_mma|flash_bwd_dkdv_mma"
-                      r"|flash_fwd|flash_bwd_dq|flash_bwd_dkdv|geglu_wmma"
+                      r"|flash_fwd|flash_bwd_dq|flash_bwd_dkdv|geglu_mma|geglu_wmma"
                       r"|geglu_simt|geglu_reduce|ln_gemm|cross_attn|gn_stats|gn_apply"
                       r"|flash_variant)_kernel)(\w*)'", line)
         if m:
@@ -367,8 +409,12 @@ def main() -> None:
                     fail(f"{kernel} spills registers: {line.strip()}")
         elif "wgmma" in line and "serialized" in line:
             fail(f"the compiler serialized a wgmma pipeline: {line.strip()}")
-    if len(mma_kernels) != 3:
-        fail(f"the build log names {sorted(mma_kernels)}, not the three tensor-core flash kernels")
+    # three flash kernels and the GEGLU kernel's instantiations <NT, G, RG>
+    n_mma = 3 + len(GEGLU_MMA_SHAPES)
+    if len(mma_kernels) != n_mma or not all(
+            f"geglu_mma_kernelILi{nt}ELi{g_}ELi{rg}EE" in " ".join(mma_kernels)
+            for nt, g_, rg in GEGLU_MMA_SHAPES):
+        fail(f"the build log names {sorted(mma_kernels)}, not the {n_mma} tensor-core kernels")
     for dtype, pairs in TILE_MENU.items():
         for bq, bk in pairs:
             log(f"[smem] flash_variant {dtype} tiles ({bq}, {bk}): "
@@ -376,6 +422,7 @@ def main() -> None:
                 f"{smem_bytes(bq, bk, True, dtype)} transposed")
 
     # 3. kernels against their plain versions
+    F = torch.nn.functional
     g = torch.Generator(dev).manual_seed(0)
 
     def randn(*shape, dtype=torch.bfloat16, scale=1.0):
@@ -418,28 +465,68 @@ def main() -> None:
             fail(f"flash {label} was served by the {route} route")
         del q, k, v, out, ref, lse, ref_lse, qt, kt, vt
 
-    geglu_cases = [  # (label, rows, C, dtype): ds1/ds2/ds4 feed-forwards
-        ("ds1 B=2", 2 * 4096, 320, torch.bfloat16), ("ds2 B=2", 2 * 1024, 640, torch.bfloat16),
-        ("ds4 B=2", 2 * 256, 1280, torch.bfloat16), ("ds1 B=20", 20 * 4096, 320, torch.bfloat16),
-        ("ds2 B=2 fp32", 2 * 1024, 640, torch.float32),
-    ]
-    for label, m, c, dtype in geglu_cases:
+    def geglu_inputs(m, c, dtype):
         x = randn(m, c, dtype=dtype)
         w1, b1 = randn(8 * c, c, dtype=dtype, scale=c**-0.5), randn(8 * c, dtype=dtype, scale=0.1)
         w2 = randn(c, 4 * c, dtype=dtype, scale=(4 * c) ** -0.5)
-        b2 = randn(c, dtype=dtype, scale=0.1)
+        return x, w1, b1, w2, randn(c, dtype=dtype, scale=0.1)
+
+    def products_ms(x, w1, w2):
+        """The two cuBLAS products of the plain composition alone, on
+        preallocated tensors of the working dtype, no gating in between."""
+        hg = torch.empty((x.shape[0], w1.shape[0]), dtype=x.dtype, device=dev)
+        act = hg[:, :w2.shape[1]]
+        out = torch.empty_like(x)
+
+        def run():
+            torch.matmul(x, w1.t(), out=hg)
+            torch.matmul(act, w2.t(), out=out)
+        return time_ms(run)
+
+    def composition_ms(x, w1, b1, w2, b2):
+        """The plain composition `GEGLUFeedForward` runs under impl="plain":
+        two products in the working dtype around an eager gate."""
+        def run():
+            h, gate = F.linear(x, w1, b1).chunk(2, dim=-1)
+            return F.linear(h * F.gelu(gate), w2, b2)
+        return time_ms(run)
+
+    def check_geglu_route(name, wrapper, label, dtype, c):
+        want = geglu_kernel_route(dtype, c)
+        if wrapper.last_route != want or (want == "mma") != (
+                dtype == torch.bfloat16 and c % 64 == 0):
+            fail(f"{name} {label} was served by the {wrapper.last_route} route, not {want}")
+        plan = wrapper.last_plan
+        return (f"route {want}, {plan.rows} rows a block, {plan.splits} split(s), "
+                f"{plan.launches} launch(es), {plan.partial_bytes} partial bytes")
+
+    geglu_cases = [  # (label, rows, C, dtype): ds1/ds2/ds4 feed-forwards
+        ("ds1 B=2", 2 * 4096, 320, torch.bfloat16), ("ds2 B=2", 2 * 1024, 640, torch.bfloat16),
+        ("ds4 B=2", 2 * 256, 1280, torch.bfloat16), ("ds1 B=20", 20 * 4096, 320, torch.bfloat16),
+        ("ds2 B=20", 20 * 1024, 640, torch.bfloat16), ("ds4 B=20", 20 * 256, 1280, torch.bfloat16),
+        ("ragged ds1", 2 * 4096 - 37, 320, torch.bfloat16),  # M not a multiple of the row tile
+        ("ds2 B=2 fp32", 2 * 1024, 640, torch.float32),
+    ]
+    for label, m, c, dtype in geglu_cases:
+        x, w1, b1, w2, b2 = geglu_inputs(m, c, dtype)
         out = geglu_ff(x, w1, b1, w2, b2)
+        how = check_geglu_route("geglu", geglu_ff, label, dtype, c)
         ref = geglu_ff_ref(x, w1, b1, w2, b2)
         torch.cuda.synchronize()
         err = float((out.float() - ref.float()).abs().max())
         tol = bf16_tol(ref) if dtype == torch.bfloat16 else 1e-5 * max(1.0, float(ref.abs().max()))
         ms = time_ms(lambda: geglu_ff(x, w1, b1, w2, b2))
+        queued_ms = back_to_back_ms(lambda: geglu_ff(x, w1, b1, w2, b2))
         plain_ms = time_ms(lambda: geglu_ff_ref(x, w1, b1, w2, b2), reps=5)
+        gemm_ms, comp_ms = products_ms(x, w1, w2), composition_ms(x, w1, b1, w2, b2)
         flops = 2 * m * 3 * c * 4 * c
         note = record(records, "geglu_ff", label, err, ms, plain_ms,
                       bound_ms(flops, nbytes(x, w1, b1, w2, b2, out), dtype))
-        log(f"[geglu] {label} (M={m}, C={c}): max_abs_err {err:.3e} (tol {tol:.3e}); "
-            f"kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, {note}")
+        records["geglu_ff"].setdefault("kernel_route", geglu_ff.last_route)
+        log(f"[geglu] {label} (M={m}, C={c}): {how}; max_abs_err {err:.3e} (tol {tol:.3e}); "
+            f"kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s; {queued_ms:.3f} ms each when 20 "
+            f"are queued back to back), plain {plain_ms:.3f} ms, the module's plain composition {comp_ms:.3f} ms, its two cuBLAS products alone "
+            f"{gemm_ms:.3f} ms, {note}")
         if not err <= tol:
             fail(f"geglu {label} disagrees with its plain version")
         del x, w1, b1, w2, b2, out, ref
@@ -586,16 +673,22 @@ def main() -> None:
         b2 = randn(c, dtype=dtype, scale=0.1)
         ff_in = (x, ln_s, ln_b, w1, b1, w2, b2)
         out = geglu_ff_ln(*ff_in)
+        how = check_geglu_route("geglu_ff_ln", geglu_ff_ln, label, dtype, c)
         ref = geglu_ff_ln_ref(*ff_in)
         torch.cuda.synchronize()
         err, tol = max_err(out, ref), tol_of(ref)
         ms = time_ms(lambda: geglu_ff_ln(*ff_in))
+        queued_ms = back_to_back_ms(lambda: geglu_ff_ln(*ff_in))
         plain_ms = time_ms(lambda: geglu_ff_ln_ref(*ff_in), reps=3)
+        gemm_ms = products_ms(x.reshape(m, c), w1, w2)
         flops = 2 * m * 3 * c * 4 * c
         note = record(records, "geglu_ff_ln", label, err, ms, plain_ms,
                       bound_ms(flops, nbytes(*ff_in, out), dtype))
-        log(f"[geglu_ln] {label} (M={m}, C={c}): max_abs_err {err:.3e} (tol {tol:.3e}); kernel "
-            f"{ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, {note}")
+        records["geglu_ff_ln"].setdefault("kernel_route", geglu_ff_ln.last_route)
+        log(f"[geglu_ln] {label} (M={m}, C={c}): {how}; max_abs_err {err:.3e} (tol {tol:.3e}); "
+            f"kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s; {queued_ms:.3f} ms each when 20 "
+            f"are queued back to back), plain {plain_ms:.3f} ms, its two cuBLAS products alone "
+            f"{gemm_ms:.3f} ms, {note}")
         if not err <= tol:
             fail(f"geglu_ff_ln {label} disagrees with its plain version")
         del out, ref
@@ -612,7 +705,6 @@ def main() -> None:
         torch.cuda.empty_cache()
 
     # 3d. the probe-level kernels: fused GroupNorm+SiLU and the flash variants
-    F = torch.nn.functional
     gn_cases = [  # (label, shape, dtype, with_silu, eps, common offset); the probe's shape first
         ("ds1 B=32", (32, 64, 64, 320), torch.bfloat16, True, 1e-5, 0.0),
         ("ds1 B=2", (2, 64, 64, 320), torch.bfloat16, True, 1e-5, 0.0),
@@ -823,6 +915,71 @@ def main() -> None:
     profile_groups("demo, one sample",
                    lambda: predictor(batch, torch.Generator(dev).manual_seed(9)),
                    statistics.median(seconds[1:]))
+
+    # 5b. the implementation switch: the same engine built with attn_impl="plain"
+    # (same seed, so the same weights) against the "auto" one, at the demo's shapes
+    plain_bundle = build_engine(TEXTDESIGN_SD_2, torch.bfloat16, dev, attn_impl="plain")
+    randomize_parameters(plain_bundle.engine, 0)
+    x_ab = randn(2, 64, 64, 9)
+    t_ab = torch.tensor([0.3, 0.3], device=dev)
+    ctx_ab = randn(2, 12, 2048)
+    eval_counts, eval_outs = {}, {}
+    with torch.no_grad():
+        for name, eng in (("auto", bundle.engine), ("plain", plain_bundle.engine)):
+            reset(*kernel_fns)
+            eval_outs[name] = eng.unet(x_ab, t_ab, ctx_ab, None)[0]
+            torch.cuda.synchronize()
+            eval_counts[name] = counts(*kernel_fns)
+    ab_err = rel_l2(eval_outs["auto"], eval_outs["plain"])
+    # both sides compute in bf16: 16 transformer blocks whose attention and
+    # feed-forward round at other places (fp32 scores and hidden in the
+    # kernels, bf16 products in the plain path); phase 4 holds ONE block to
+    # 2e-2 against fp32, and the errors of a stack add up
+    ab_tol = 5e-2
+    log(f"[plain_ab] one UNet eval (B=2, bf16): launches auto {eval_counts['auto']}, plain "
+        f"{eval_counts['plain']}; relative L2 auto vs plain {ab_err:.3e} (tol {ab_tol:.0e}); "
+        f"GEGLU route {geglu_ff.last_route}")
+    if eval_counts["auto"] != expected(flash_attention=10, geglu_ff=15):
+        fail(f"a UNet eval under attn_impl='auto' launched {eval_counts['auto']}")
+    if eval_counts["plain"] != expected():
+        fail(f"a UNet eval under attn_impl='plain' launched {eval_counts['plain']}")
+    if not (ab_err <= ab_tol and torch.isfinite(eval_outs["plain"]).all()):
+        fail("the UNet under attn_impl='plain' disagrees with attn_impl='auto'")
+    if geglu_ff.last_route != "mma":
+        fail(f"the UNet's bf16 feed-forwards ran on the {geglu_ff.last_route} route")
+    # ... and a 5-step sample under each, and under "auto" with only the
+    # feed-forwards forced to their plain composition ("ff_plain": what the
+    # GEGLU kernel alone is worth end to end)
+    ffs = [m_ for m_ in bundle.engine.unet.modules() if isinstance(m_, GEGLUFeedForward)]
+    ab_s = {"auto": [], "ff_plain": [], "plain": []}
+    ab_want = {"auto": expected(flash_attention=70, geglu_ff=105),
+               "ff_plain": expected(flash_attention=70), "plain": expected()}
+    for name in ("plain", "ff_plain", "auto") + ("plain", "auto", "ff_plain", "ff_plain", "auto",
+                                                 "plain"):  # the first three warm up
+        eng = plain_bundle.engine if name == "plain" else bundle.engine
+        for ff in ffs:
+            ff.impl = "plain" if name == "ff_plain" else "auto"
+        short = Predictor(eng, num_steps=5, cfg_scale=4.0, noise_iters=10,
+                          noise_search_batched=True)
+        reset(*kernel_fns)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        images_ab, _ = short(batch, torch.Generator(dev).manual_seed(0))
+        torch.cuda.synchronize()
+        ab_s[name].append(time.perf_counter() - t0)
+        got = counts(*kernel_fns)
+        if got != ab_want[name] or not torch.isfinite(images_ab).all():
+            fail(f"a 5-step sample under {name!r} launched {got}, expected {ab_want[name]}")
+    for ff in ffs:
+        ff.impl = "auto"
+    best = {k: min(v[1:]) for k, v in ab_s.items()}
+    log(f"[plain_ab] 5-step sample (10 candidates, CFG 4.0; 7 UNet evals): kernels "
+        f"{best['auto']:.3f} s, plain {best['plain']:.3f} s, flash kernels with plain "
+        f"feed-forwards {best['ff_plain']:.3f} s (the faster of two runs each after a warm-up; "
+        f"all runs: " + ", ".join(f"{k} {[round(t, 3) for t in v]}" for k, v in ab_s.items())
+        + "); zero kernel launches under 'plain'")
+    del plain_bundle, eval_outs, x_ab, ctx_ab, images_ab, eng, short, ffs
+    torch.cuda.empty_cache()
 
     # 7. the demo flow with attend-and-excite and middle-step map capture
     # (run here, on phase 5's engine, so that phase 6 measures its own peak)

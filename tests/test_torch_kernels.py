@@ -17,6 +17,8 @@ for lse. The fused GroupNorm under a common offset of
 1000: 1e-3 absolute (fp32 values there are 6e-5 apart and the two sides sum
 their means in different orders)."""
 
+import math
+
 import pytest
 import torch
 
@@ -44,7 +46,15 @@ from udifftext_tpu_torch.ops.flash_variants import (
     flash_variant_ref,
     smem_bytes,
 )
-from udifftext_tpu_torch.ops.geglu import geglu_ff, geglu_ff_ln, geglu_ff_ln_ref, geglu_ff_ref
+from udifftext_tpu_torch.ops.geglu import (
+    geglu_ff,
+    geglu_ff_ln,
+    geglu_ff_ln_ref,
+    geglu_ff_ref,
+    geglu_ff_tiled_ref,
+    geglu_kernel_route,
+    geglu_plan,
+)
 from udifftext_tpu_torch.ops.groupnorm import fused_groupnorm_silu, fused_groupnorm_silu_ref
 from udifftext_tpu_torch.ops.ln_gemm import (
     ln_gemm,
@@ -326,6 +336,90 @@ def test_geglu_rejects_what_it_does_not_take(gen):
     xb, w1b, b1b, w2b, b2b = (t[:480].bfloat16() if t.ndim else t for t in (x, w1, b1, w2, b2))
     with pytest.raises(ValueError):  # bf16: I % 64 != 0
         geglu_ff(xb, w1b[:480], b1b[:480], w2b[:, :240].contiguous(), b2b)
+
+
+def _geglu_case(gen, m, c, dtype):
+    def r(*s, scale=1.0):
+        return (torch.randn(*s, generator=gen, device="cuda") * scale).to(dtype)
+
+    return (r(m, c), r(8 * c, c, scale=c**-0.5), r(8 * c, scale=0.1),
+            r(c, 4 * c, scale=(4 * c) ** -0.5), r(c, scale=0.1))
+
+
+@pytest.mark.parametrize("m,c,dtype,route", [
+    (2 * 4096, 320, torch.bfloat16, "mma"), (20 * 4096, 320, torch.bfloat16, "mma"),
+    (2 * 1024, 640, torch.bfloat16, "mma"), (20 * 1024, 640, torch.bfloat16, "mma"),
+    (2 * 256, 1280, torch.bfloat16, "mma"), (20 * 256, 1280, torch.bfloat16, "mma"),
+    (2 * 4096 - 37, 320, torch.bfloat16, "mma"),  # ragged: the last block's rows end early
+    (1000, 640, torch.bfloat16, "mma"), (300, 1280, torch.bfloat16, "mma"),
+    (700, 64, torch.bfloat16, "mma"), (700, 192, torch.bfloat16, "mma"),
+    (700, 512, torch.bfloat16, "mma"), (700, 768, torch.bfloat16, "mma"),
+    (700, 48, torch.bfloat16, "wmma"), (700, 448, torch.bfloat16, "wmma"),
+    (700, 64, torch.float32, "fma"),
+])
+@pytest.mark.parametrize("with_ln", [False, True])
+def test_geglu_routes_match_plain(gen, m, c, dtype, route, with_ln):
+    """Every route of the kernel, with and without its LayerNorm prologue,
+    against the plain version, and for "mma" against the model of its order
+    of operations (one bf16 ulp of the largest value: only the last rounding
+    can fall the other way); the route and the plan are the ones the pure functions name."""
+    x, w1, b1, w2, b2 = _geglu_case(gen, m, c, dtype)
+    assert geglu_kernel_route(dtype, c) == route
+    if with_ln:
+        scale = 1 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+        bias = 0.1 * torch.randn(c, generator=gen, device="cuda")
+        wrapper, args, ref_fn = geglu_ff_ln, (x, scale, bias, w1, b1, w2, b2), geglu_ff_ln_ref
+    else:
+        wrapper, args, ref_fn = geglu_ff, (x, w1, b1, w2, b2), geglu_ff_ref
+    before = wrapper.launches
+    out = wrapper(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1 and wrapper.last_route == route
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = geglu_plan(dtype, m, c, 4 * c, sms)
+    assert wrapper.last_plan == plan and (plan.launches == 1) == (plan.partial_bytes == 0)
+    _check(out, ref_fn(*args))
+    if route == "mma":
+        tiled = geglu_ff_tiled_ref(x, w1, b1, w2, b2, plan.splits, 128 if c > 640 else 64,
+                                   ln=(scale, bias) if with_ln else None)
+        top = max(1.0, float(tiled.float().abs().max()))
+        assert float((out.float() - tiled.float()).abs().max()) <= 2.0 ** (
+            math.floor(math.log2(top)) - 7)
+    again = wrapper(*args)
+    assert torch.equal(out, again)  # fixed-order sums: the same bits every time
+
+
+def test_geglu_mma_rejects_misaligned(gen):
+    x, w1, b1, w2, b2 = _geglu_case(gen, 256, 320, torch.bfloat16)
+    with pytest.raises(ValueError):
+        geglu_ff(x, w1, torch.cat([b1[:1], b1])[1:], w2, b2)  # b1 off the 32-byte boundary
+    with pytest.raises(ValueError):
+        geglu_ff(x, w1[:, :256], b1, w2, b2)
+
+
+def test_unet_auto_matches_plain(gen):
+    """One UNet eval at the demo's shapes under attn_impl "auto" and "plain":
+    kernels only in the first, outputs within 5e-2 relative L2 (16 blocks
+    whose bf16 roundings differ between the kernels and the plain path)."""
+    from udifftext_tpu_torch.builders import TEXTDESIGN_SD_2, build_engine, randomize_parameters
+
+    x = torch.randn(2, 64, 64, 9, generator=gen, device="cuda").bfloat16()
+    t = torch.tensor([0.3, 0.3], device="cuda")
+    ctx = torch.randn(2, 12, 2048, generator=gen, device="cuda").bfloat16()
+    outs = {}
+    for impl in ("auto", "plain"):
+        unet = build_engine(TEXTDESIGN_SD_2, torch.bfloat16, "cuda", attn_impl=impl).engine.unet
+        randomize_parameters(unet, 0)
+        before = geglu_ff.launches, flash_attention.launches
+        with torch.no_grad():
+            outs[impl] = unet(x, t, ctx, None)[0]
+        torch.cuda.synchronize()
+        moved = geglu_ff.launches - before[0], flash_attention.launches - before[1]
+        assert moved == ((15, 10) if impl == "auto" else (0, 0))
+        del unet
+    assert geglu_ff.last_route == "mma"
+    rel = float((outs["auto"] - outs["plain"]).norm() / outs["plain"].norm())
+    assert torch.isfinite(outs["auto"]).all() and rel <= 5e-2
 
 
 # -- the LayerNorm-fused kernels ---------------------------------------------

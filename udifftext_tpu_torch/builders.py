@@ -177,7 +177,7 @@ def _check_embedders(emb_models) -> Dict[str, Any]:
 
 def build_engine(model_cfg: Dict[str, Any], unet_dtype: torch.dtype = torch.bfloat16,
                  device: torch.device | str = "cuda", train: bool = False,
-                 remat: bool = False) -> EngineBundle:
+                 remat: bool = False, attn_impl: str = "auto") -> EngineBundle:
     """`model.params` of a textdesign_sd_2.yaml graph → engine on `device`
     (the GPU unless the caller asks for "cpu"; without a GPU the default fails).
 
@@ -187,13 +187,15 @@ def build_engine(model_cfg: Dict[str, Any], unet_dtype: torch.dtype = torch.bflo
     parameters whose name matches one of the graph's `opt_keys` (t_attn,
     t_norm) are trainable instead, and kept in fp32 as master weights (their
     layers cast them to the compute dtype at use). `remat` turns on the
-    UNet's gradient checkpointing. Weights are PyTorch's default
+    UNet's gradient checkpointing. `attn_impl` ("auto" | "plain" | "flash")
+    goes to the UNet and the VAE: "plain" keeps every hand-written kernel out
+    of the run, for an A/B against "auto". Weights are PyTorch's default
     initialization; load a state dict or call `randomize_parameters` next."""
     with torch.device(device):  # parameters are created (and initialized) in place
-        return _build_engine(model_cfg, unet_dtype, device, train, remat)
+        return _build_engine(model_cfg, unet_dtype, device, train, remat, attn_impl)
 
 
-def _build_engine(model_cfg, unet_dtype, device, train, remat) -> EngineBundle:
+def _build_engine(model_cfg, unet_dtype, device, train, remat, attn_impl) -> EngineBundle:
     p = model_cfg
     opt_keys = tuple(p.get("opt_keys", ("t_attn", "t_norm")))
     net = _params(p.get("network_config"))
@@ -216,6 +218,7 @@ def _build_engine(model_cfg, unet_dtype, device, train, remat) -> EngineBundle:
         v_context_dim=net.get("v_context_dim"),
         dtype=unet_dtype,
         remat=remat,
+        attn_impl=attn_impl,
     )
 
     vae_p = _params(p.get("first_stage_config"))
@@ -230,7 +233,7 @@ def _build_engine(model_cfg, unet_dtype, device, train, remat) -> EngineBundle:
             in_channels=dd.get("in_channels", 3), resolution=dd.get("resolution", 256),
             z_channels=dd.get("z_channels", 4), double_z=dd.get("double_z", True),
         ),
-        embed_dim=vae_p.get("embed_dim", 4), dtype=vae_dtype,
+        embed_dim=vae_p.get("embed_dim", 4), dtype=vae_dtype, attn_impl=attn_impl,
     )
 
     emb = _check_embedders(_params(p.get("conditioner_config")).get("emb_models", []) or [])

@@ -1,5 +1,6 @@
-// Building blocks of the tensor-core flash-attention kernels (flash_attention.cu,
-// flash_attention_bwd.cu) on Hopper (sm_90a), for bf16 tiles of 64 columns:
+// Building blocks of the tensor-core kernels (flash_attention.cu,
+// flash_attention_bwd.cu, the "mma" route of geglu.cu) on Hopper (sm_90a), for
+// bf16 tiles of 64 columns:
 //
 //   - tiles in shared memory: rows of 64 bf16 = 128 bytes, the 16-byte chunk
 //     index XORed with (row mod 8). That is the 128-byte swizzle `wgmma`

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import sdpa
+from ..ops.attention import IMPLS as ATTN_IMPLS
 from ..ops.cross_attention import (
     cross_attention_supported,
     fused_cross_attention,
@@ -35,6 +36,12 @@ KV = Tuple[torch.Tensor, torch.Tensor]
 LN = Tuple[torch.Tensor, torch.Tensor]  # a pre-norm's (scale, bias)
 
 
+def _check_attn_impl(attn_impl: str) -> str:
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
+    return attn_impl
+
+
 def _ln_pair(norm: nn.LayerNorm) -> LN:
     """A LayerNorm module's parameters as the fp32 `ln` pair of the fused ops."""
     return norm.weight.float(), norm.bias.float()
@@ -44,13 +51,16 @@ class SelfAttention(nn.Module):
     """Multi-head self-attention through `ops.sdpa` (flash on CUDA at the
     latent shapes). `fuse_qkv` is the A/B switch of the q/k/v projections:
     one concatenated product then a split or, with `ln`, the `ln_gemm3`
-    kernel; the parameters are the same three `to_q/to_k/to_v` either way."""
+    kernel; the parameters are the same three `to_q/to_k/to_v` either way.
+    `attn_impl` is handed to `sdpa` as its `impl`."""
 
-    def __init__(self, dim: int, heads: int, dim_head: int, fuse_qkv: bool = False):
+    def __init__(self, dim: int, heads: int, dim_head: int, fuse_qkv: bool = False,
+                 attn_impl: str = "auto"):
         super().__init__()
         inner = heads * dim_head
         self.heads, self.dim_head = heads, dim_head
         self.fuse_qkv = fuse_qkv
+        self.attn_impl = _check_attn_impl(attn_impl)
         self.to_q = Dense(dim, inner, bias=False)
         self.to_k = Dense(dim, inner, bias=False)
         self.to_v = Dense(dim, inner, bias=False)
@@ -74,7 +84,7 @@ class SelfAttention(nn.Module):
                 if ln is not None:
                     x = ln_ref_f32(x, ln[0], ln[1])
                 q, k, v = F.linear(x, torch.cat([wq, wk, wv], dim=0)).chunk(3, dim=-1)
-        out = sdpa(q.reshape(shape), k.reshape(shape), v.reshape(shape))
+        out = sdpa(q.reshape(shape), k.reshape(shape), v.reshape(shape), impl=self.attn_impl)
         return self.to_out[0](out.reshape(b, n, self.heads * self.dim_head))
 
 
@@ -144,17 +154,45 @@ class _Proj(nn.Module):
         self.proj = Dense(dim, out)
 
 
+FF_IMPLS = ("auto", "fused", "plain")
+
+
+def geglu_auto_ok(x: torch.Tensor) -> bool:
+    """The "auto" gate of `GEGLUFeedForward`: the fused kernel for CUDA bf16
+    tensors with N % 128 == 0, the plain composition (two cuBLAS products
+    around an eager gate) for everything else.
+
+    Measured on an NVIDIA H100 80GB HBM3 at 700 W by `chip_smoke.py` (phase
+    3, medians of single calls, kernel against plain composition, ms). fp32,
+    ds2 B=2: 3.985 against 0.627 on the FMA kernel `geglu_simt_kernel`, so
+    fp32 takes the plain composition (`impl="fused"` still reaches the
+    kernel). bf16, ds1 / ds2 / ds4: at B=20 0.732 / 1.039 / 1.514 against
+    1.085 / 0.666 / 0.509; at B=2 0.201 / 0.246 / 0.178 against 0.144 /
+    0.094 / 0.122, where six launches of the composition cost the host about
+    what the kernel's one launch costs the device. bf16 stays on the kernel:
+    end to end the two are level (a 5-step sample with 7 UNet evals, phase
+    5b: 0.760 s against 0.734 s with only the feed-forwards forced plain,
+    inside the spread of repeated runs), the kernel is one launch a call, and
+    it keeps the (M, 8·C) hidden out of device memory."""
+    return x.is_cuda and x.dtype == torch.bfloat16 and x.shape[1] % 128 == 0
+
+
 class GEGLUFeedForward(nn.Module):
     """(h ⊙ gelu(g))·W2 + b2 with [h, g] = x·W1 + b1, inner width 4·dim.
 
-    On CUDA with N % 128 == 0 it runs the fused kernel (ops/geglu.py,
-    differentiable), which keeps the 8×-wide hidden out of device memory;
-    otherwise the plain composition in the compute dtype. With `ln`, x is the
-    raw input and the LayerNorm runs in the kernel's prologue (`geglu_ff_ln`)
-    or, on the plain path, as `ln_ref_f32`."""
+    `impl` "auto" runs the fused kernel (ops/geglu.py, differentiable), which
+    keeps the 8×-wide hidden out of device memory, where `geglu_auto_ok` says
+    it pays, and the plain composition in the compute dtype elsewhere;
+    "fused" always takes the kernel wrapper (its plain version on the CPU; a
+    CUDA shape it does not serve raises); "plain" never launches a kernel.
+    With `ln`, x is the raw input and the LayerNorm runs in the kernel's
+    prologue (`geglu_ff_ln`) or, on the plain path, as `ln_ref_f32`."""
 
-    def __init__(self, dim: int, mult: int = 4):
+    def __init__(self, dim: int, mult: int = 4, impl: str = "auto"):
         super().__init__()
+        if impl not in FF_IMPLS:
+            raise ValueError(f"GEGLUFeedForward: impl must be one of {FF_IMPLS}, got {impl!r}")
+        self.impl = impl
         self.net = nn.ModuleList([_Proj(dim, 2 * mult * dim), nn.Identity(), Dense(mult * dim, dim)])
 
     def forward(self, x: torch.Tensor, ln: Optional[LN] = None) -> torch.Tensor:
@@ -162,7 +200,7 @@ class GEGLUFeedForward(nn.Module):
         dt = x.dtype
         w1, b1 = proj.weight.to(dt), proj.bias.to(dt)
         w2, b2 = out.weight.to(dt), out.bias.to(dt)
-        if x.is_cuda and x.shape[1] % 128 == 0:
+        if self.impl == "fused" or (self.impl == "auto" and geglu_auto_ok(x)):
             if ln is not None:
                 return geglu_ff_ln(x.contiguous(), ln[0], ln[1], w1, b1, w2, b2)
             return geglu_ff(x.contiguous(), w1, b1, w2, b2)
@@ -181,21 +219,25 @@ class BasicTransformerBlock(nn.Module):
     the one-kernel cross-attention branch (residual included; hoisted K/V and
     no map capture), norm3 into the GEGLU prologue. "force" always takes the
     fused branches (their plain versions on the CPU); "auto" takes them with
-    `fuse_qkv`, bf16, a CUDA tensor and N % 128 == 0. The default is "off", as
-    in the JAX build; the LayerNorm modules and every state-dict key are the
-    same in all three."""
+    `fuse_qkv`, bf16, a CUDA tensor, N % 128 == 0 and `attn_impl` other than
+    "plain". The default is "off", as in the JAX build; the LayerNorm modules
+    and every state-dict key are the same in all three. `attn_impl` ("auto" |
+    "plain" | "flash") goes to the self-attention; "plain" also hands
+    "plain" to the feed-forward, so that no kernel launches in the block."""
 
     def __init__(self, heads: int, dim_head: int, t_context_dim: Optional[int] = None,
                  v_context_dim: Optional[int] = None, fuse_qkv: bool = False,
-                 fuse_glue: str = "off"):
+                 fuse_glue: str = "off", attn_impl: str = "auto"):
         super().__init__()
+        self.attn_impl = _check_attn_impl(attn_impl)
         if fuse_glue not in ("off", "auto", "force"):
             raise ValueError(f"fuse_glue must be 'off', 'auto' or 'force', got {fuse_glue!r}")
         dim = heads * dim_head
         self.fuse_qkv, self.fuse_glue = fuse_qkv, fuse_glue
         # the q/k/v projections fuse whenever the glue does, as in the JAX block
         self.attn1 = SelfAttention(dim, heads, dim_head,
-                                   fuse_qkv=fuse_qkv or fuse_glue == "force")
+                                   fuse_qkv=fuse_qkv or fuse_glue == "force",
+                                   attn_impl=attn_impl)
         self.norm1 = LayerNormF32(dim)
         self.has_t = bool(t_context_dim)
         self.has_v = bool(v_context_dim)
@@ -205,8 +247,14 @@ class BasicTransformerBlock(nn.Module):
         if self.has_v:
             self.v_attn = CrossAttention(dim, v_context_dim, heads, dim_head)
             self.v_norm = LayerNormF32(dim)
-        self.ff = GEGLUFeedForward(dim)
+        self.ff = GEGLUFeedForward(dim, impl="plain" if attn_impl == "plain" else "auto")
         self.norm3 = LayerNormF32(dim)
+
+    def fuses(self, is_cuda: bool, dtype: torch.dtype, n: int) -> bool:
+        """Whether a (B, n, C) input of `dtype` takes the fused-glue branches."""
+        return self.fuse_glue == "force" or (
+            self.fuse_glue == "auto" and self.fuse_qkv and dtype == torch.bfloat16
+            and self.attn_impl != "plain" and is_cuda and n % 128 == 0)
 
     def forward(
         self,
@@ -217,9 +265,7 @@ class BasicTransformerBlock(nn.Module):
         ctx_kv: Optional[Dict[str, KV]] = None,
     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         ctx_kv = ctx_kv or {}
-        fuse = self.fuse_glue == "force" or (
-            self.fuse_glue == "auto" and self.fuse_qkv and x.dtype == torch.bfloat16
-            and x.is_cuda and x.shape[1] % 128 == 0)
+        fuse = self.fuses(x.is_cuda, x.dtype, x.shape[1])
         if fuse:
             x = self.attn1(x, ln=_ln_pair(self.norm1)) + x
         else:
@@ -245,13 +291,15 @@ class SpatialTransformer(nn.Module):
     """GroupNorm → linear proj_in → blocks → proj_out → residual, on NHWC x."""
 
     def __init__(self, channels: int, heads: int, dim_head: int, depth: int = 1,
-                 t_context_dim: Optional[int] = None, v_context_dim: Optional[int] = None):
+                 t_context_dim: Optional[int] = None, v_context_dim: Optional[int] = None,
+                 attn_impl: str = "auto"):
         super().__init__()
         inner = heads * dim_head
         self.norm = GroupNorm32(channels, eps=1e-6)
         self.proj_in = Dense(channels, inner)
         self.transformer_blocks = nn.ModuleList(
-            [BasicTransformerBlock(heads, dim_head, t_context_dim, v_context_dim)
+            [BasicTransformerBlock(heads, dim_head, t_context_dim, v_context_dim,
+                                   attn_impl=attn_impl)
              for _ in range(depth)]
         )
         self.proj_out = Dense(inner, channels)

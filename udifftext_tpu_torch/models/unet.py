@@ -150,8 +150,10 @@ class UNetModel(nn.Module):
         v_context_dim: Optional[int] = None,
         dtype: torch.dtype = torch.float32,
         remat: bool = False,
+        attn_impl: str = "auto",
     ):
         super().__init__()
+        self.attn_impl = attn_impl  # "auto" | "plain" | "flash", for every transformer block
         self.in_channels = in_channels
         self.model_channels = model_channels
         self.channel_mult = tuple(channel_mult)
@@ -173,7 +175,8 @@ class UNetModel(nn.Module):
                 return ResBlock(spec.in_ch, spec.out_ch, time_dim)
             if spec.kind == "attn":
                 return SpatialTransformer(spec.in_ch, spec.heads, spec.dim_head,
-                                          transformer_depth, t_context_dim, v_context_dim)
+                                          transformer_depth, t_context_dim, v_context_dim,
+                                          attn_impl=attn_impl)
             if spec.kind == "down":
                 return Downsample(spec.out_ch)
             if spec.kind == "up":

@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import sdpa
+from ..ops.attention import IMPLS as ATTN_IMPLS
 from .layers import Conv1x1, Conv3x3, GroupNorm32, upsample_nearest_2x
 
 
@@ -52,10 +53,13 @@ class VAEResnetBlock(nn.Module):
 
 
 class VAEAttnBlock(nn.Module):
-    """Single-head self-attention over pixels."""
+    """Single-head self-attention over pixels; `attn_impl` is `sdpa`'s `impl`."""
 
-    def __init__(self, ch: int):
+    def __init__(self, ch: int, attn_impl: str = "auto"):
         super().__init__()
+        if attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
+        self.attn_impl = attn_impl
         self.norm = GroupNorm32(ch, eps=1e-6)
         self.q, self.k, self.v = Conv1x1(ch, ch), Conv1x1(ch, ch), Conv1x1(ch, ch)
         self.proj_out = Conv1x1(ch, ch)
@@ -64,7 +68,7 @@ class VAEAttnBlock(nn.Module):
         b, hh, ww, c = x.shape
         h = self.norm(x)
         q, k, v = (m(h).reshape(b, hh * ww, 1, c) for m in (self.q, self.k, self.v))
-        return x + self.proj_out(sdpa(q, k, v).reshape(b, hh, ww, c))
+        return x + self.proj_out(sdpa(q, k, v, impl=self.attn_impl).reshape(b, hh, ww, c))
 
 
 class VAEDownsample(nn.Module):
@@ -101,10 +105,10 @@ class DDConfig:
 
 
 class _Mid(nn.Module):
-    def __init__(self, ch: int):
+    def __init__(self, ch: int, attn_impl: str = "auto"):
         super().__init__()
         self.block_1 = VAEResnetBlock(ch, ch)
-        self.attn_1 = VAEAttnBlock(ch)
+        self.attn_1 = VAEAttnBlock(ch, attn_impl)
         self.block_2 = VAEResnetBlock(ch, ch)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -133,7 +137,7 @@ class _Level(nn.Module):
 
 
 class Encoder(nn.Module):
-    def __init__(self, cfg: DDConfig):
+    def __init__(self, cfg: DDConfig, attn_impl: str = "auto"):
         super().__init__()
         self.conv_in = Conv3x3(cfg.in_channels, cfg.ch)
         levels = []
@@ -147,14 +151,14 @@ class Encoder(nn.Module):
                 blocks.append(VAEResnetBlock(ch, out))
                 ch = out
                 if res in cfg.attn_resolutions:
-                    attns.append(VAEAttnBlock(ch))
+                    attns.append(VAEAttnBlock(ch, attn_impl))
             last = i == n - 1
             levels.append(_Level(blocks, attns, None if last else "downsample",
                                  None if last else VAEDownsample(ch)))
             if not last:
                 res //= 2
         self.down = nn.ModuleList(levels)
-        self.mid = _Mid(ch)
+        self.mid = _Mid(ch, attn_impl)
         self.norm_out = GroupNorm32(ch, eps=1e-6)
         self.conv_out = Conv3x3(ch, 2 * cfg.z_channels if cfg.double_z else cfg.z_channels)
 
@@ -167,13 +171,13 @@ class Encoder(nn.Module):
 
 
 class Decoder(nn.Module):
-    def __init__(self, cfg: DDConfig):
+    def __init__(self, cfg: DDConfig, attn_impl: str = "auto"):
         super().__init__()
         n = len(cfg.ch_mult)
         ch = cfg.ch * cfg.ch_mult[-1]
         res = cfg.resolution // 2 ** (n - 1)
         self.conv_in = Conv3x3(cfg.z_channels, ch)
-        self.mid = _Mid(ch)
+        self.mid = _Mid(ch, attn_impl)
         levels = [None] * n
         for i in reversed(range(n)):
             out = cfg.ch * cfg.ch_mult[i]
@@ -182,7 +186,7 @@ class Decoder(nn.Module):
                 blocks.append(VAEResnetBlock(ch, out))
                 ch = out
                 if res in cfg.attn_resolutions:
-                    attns.append(VAEAttnBlock(ch))
+                    attns.append(VAEAttnBlock(ch, attn_impl))
             levels[i] = _Level(blocks, attns, "upsample" if i else None,
                                VAEUpsample(ch) if i else None)
             if i:
@@ -202,12 +206,13 @@ class AutoencoderKL(nn.Module):
     """encode → DiagonalGaussian parameters; decode; quant convs included."""
 
     def __init__(self, cfg: DDConfig = DDConfig(), embed_dim: int = 4,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, attn_impl: str = "auto"):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
-        self.encoder = Encoder(cfg)
-        self.decoder = Decoder(cfg)
+        self.attn_impl = attn_impl
+        self.encoder = Encoder(cfg, attn_impl)
+        self.decoder = Decoder(cfg, attn_impl)
         self.quant_conv = Conv1x1(2 * cfg.z_channels, 2 * embed_dim)
         self.post_quant_conv = Conv1x1(embed_dim, cfg.z_channels)
 

@@ -4,7 +4,10 @@ The port of `udifftext_tpu/ops/attention.py`: CUDA tensors of the latent
 self-attention shapes go to the flash kernels (ops/flash_attention.py,
 differentiable: its backward is the flash backward kernel); every other
 shape, and every CPU tensor, takes the plain matmul + fp32 softmax path, as
-the TPU build sends them to XLA.
+the TPU build sends them to XLA. `impl` is the TPU build's switch: "auto"
+(that gate), "plain" (its "xla": never a kernel) or "flash" (always the
+kernel wrapper, which takes its plain version for a CPU tensor and raises on
+a CUDA shape it does not serve).
 
 Shapes: q (B, Nq, H, D), k/v (B, Nk, H, D) → out (B, Nq, H, D).
 """
@@ -42,8 +45,14 @@ def flash_ok(q: torch.Tensor, k: torch.Tensor) -> bool:
     return q.is_cuda and flash_shape_ok(q.shape[1], k.shape[1], q.shape[-1])
 
 
+IMPLS = ("auto", "plain", "flash")
+
+
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-         scale: Optional[float] = None) -> torch.Tensor:
-    if flash_ok(q, k):
+         scale: Optional[float] = None, impl: str = "auto") -> torch.Tensor:
+    """Attention; `impl` in {"auto", "plain", "flash"}."""
+    if impl not in IMPLS:
+        raise ValueError(f"sdpa: impl must be one of {IMPLS}, got {impl!r}")
+    if impl == "flash" or (impl == "auto" and flash_ok(q, k)):
         return flash_attention(q, k, v, scale)[0]
     return plain_sdpa(q, k, v, scale)
