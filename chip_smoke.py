@@ -9,8 +9,9 @@ each printed on its own line:
 1. the card's name and power limit, as nvidia-smi prints them;
 2. the kernel build from udifftext_tpu_torch/csrc, with its time and the
    compiler's register and spill report of every kernel; it fails if a
-   tensor-core (`wgmma`) flash or GEGLU kernel spills or had its wgmma
-   pipeline serialized;
+   tensor-core (`wgmma`) flash, GEGLU or flash-variant kernel (each of the
+   twelve instantiations of flash_variant_mma_kernel<BQ, BK, TR, CLAMP>)
+   spills or had its wgmma pipeline serialized;
 3. each forward kernel against its plain PyTorch version on the same CUDA
    tensors, at the main path's shapes: max error against the stated
    tolerance and both times (CUDA events, median of repeated runs); each
@@ -32,10 +33,12 @@ each printed on its own line:
 3d. the probe-level kernels against their plain versions: fused_groupnorm_silu
    at the ResBlock widths (bf16, fp32, without SiLU at eps 1e-6, and under a
    large common offset) beside F.group_norm + F.silu; every flash variant
-   (v1-v4) at every tile pair at B·H = 160 and 10, N = 4096 and 1024, beside
-   scaled_dot_product_attention, plus a case whose logits leave ±60, where
-   v3/v4 must follow the clamped plain version and v1/v2 the softmax; and
-   that both wrappers raise when a gradient is asked through them;
+   (v1-v4) at every tile pair at B·H = 160 and 10, N = 4096 and 1024, with
+   its route ("mma": `wgmma`, bf16; "fma": fp32) and registers, beside
+   scaled_dot_product_attention, plus a case whose logits pass 80, where v1
+   must follow the plain version clamped at ±75, v3/v4 the one clamped at
+   ±60 and v2 the softmax, v1's log Σp within 1e-4 everywhere; and that both
+   wrappers raise when a gradient is asked through them;
 4. one full-width SpatialTransformer at ds1 (320 channels, 64² latent) in
    bf16 on the GPU against the same block in fp32 on the CPU;
 4b. that block's gradients (input, t_attn/t_norm weights), bf16 GPU with
@@ -349,11 +352,14 @@ def main() -> None:
         fused_cross_attention_ref,
     )
     from udifftext_tpu_torch.ops.flash_variants import (
+        CLAMP_EXP,
+        CLAMP_V1,
         TILE_MENU,
         VARIANTS,
         flash_v1_with_lse,
         flash_variant,
         flash_variant_ref,
+        kernel_route,
         smem_bytes,
     )
     from udifftext_tpu_torch.ops.geglu import (
@@ -393,28 +399,44 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.load_library()
     log(f"[build] {_build.library_path().name} in {time.perf_counter() - t0:.2f} s")
-    kernel, mma_kernels = "", set()
+    kernel, mma_kernels, registers = "", set(), {}
     for line in _build.library_path().with_suffix(".log").read_text().splitlines():
         m = re.search(r"entry function '\w*?((?:flash_fwd_mma|flash_bwd_dq_mma|flash_bwd_dkdv_mma"
                       r"|flash_fwd|flash_bwd_dq|flash_bwd_dkdv|geglu_mma|geglu_wmma"
                       r"|geglu_simt|geglu_reduce|ln_gemm|cross_attn|gn_stats|gn_apply"
-                      r"|flash_variant)_kernel)(\w*)'", line)
+                      r"|flash_variant_mma|flash_variant_fma)_kernel)(\w*)'", line)
         if m:
             kernel = m.group(1) + m.group(2).replace("__nv_bfloat16", "bf16")
         elif "spill stores" in line or "registers" in line:
             log(f"[ptxas] {kernel}: {line.split(':', 1)[-1].strip()}")
+            used = re.search(r"Used (\d+) registers", line)
+            if used:
+                registers[kernel] = int(used.group(1))
             if "_mma_" in kernel and "spill stores" in line:
                 mma_kernels.add(kernel)
                 if "0 bytes spill stores, 0 bytes spill loads" not in line:
                     fail(f"{kernel} spills registers: {line.strip()}")
         elif "wgmma" in line and "serialized" in line:
             fail(f"the compiler serialized a wgmma pipeline: {line.strip()}")
-    # three flash kernels and the GEGLU kernel's instantiations <NT, G, RG>
-    n_mma = 3 + len(GEGLU_MMA_SHAPES)
+    def variant_kernel(dtype, bq, bk, transposed, clamp):
+        """The mangled-name stem of the instantiation serving a variant."""
+        route = kernel_route(dtype)
+        return (f"flash_variant_{route}_kernelILi{bq}ELi{bk}ELb{int(transposed)}"
+                f"ELb{int(clamp is not None)}EE")
+
+    # three flash kernels, the GEGLU kernel's instantiations <NT, G, RG> and
+    # the flash variants' <BQ, BK, TR, CLAMP> (v1 and v3 share theirs)
+    variant_stems = {variant_kernel(torch.bfloat16, bq, bk, tr, cl)
+                     for bq, bk in TILE_MENU[torch.bfloat16] for tr, cl in VARIANTS.values()}
+    n_mma = 3 + len(GEGLU_MMA_SHAPES) + len(variant_stems)
+    names = " ".join(mma_kernels)
     if len(mma_kernels) != n_mma or not all(
-            f"geglu_mma_kernelILi{nt}ELi{g_}ELi{rg}EE" in " ".join(mma_kernels)
-            for nt, g_, rg in GEGLU_MMA_SHAPES):
+            f"geglu_mma_kernelILi{nt}ELi{g_}ELi{rg}EE" in names
+            for nt, g_, rg in GEGLU_MMA_SHAPES) or not all(st in names for st in variant_stems):
         fail(f"the build log names {sorted(mma_kernels)}, not the {n_mma} tensor-core kernels")
+
+    def registers_of(stem):
+        return next((n for name, n in registers.items() if name.startswith(stem)), None)
     for dtype, pairs in TILE_MENU.items():
         for bq, bk in pairs:
             log(f"[smem] flash_variant {dtype} tiles ({bq}, {bk}): "
@@ -749,15 +771,18 @@ def main() -> None:
         del x, out, ref, xv, xc
     torch.cuda.empty_cache()
 
+    clamps = sorted({c for _, c in VARIANTS.values()}, key=lambda c: c or 0.0)
+
     def check_variants(label, q, k, v, timed):
         """Every variant at every tile pair of q's dtype against the plain
-        version of its own function (softmax, or the clamped form)."""
+        version of its own function (softmax, or the form clamped at ±75 or
+        ±60), and v1's log Σp against the plain version's."""
         dtype, (bh, n, _) = q.dtype, q.shape
-        refs = {clamp: flash_variant_ref(q, k, v, clamp) for clamp in (False, True)}
+        refs = {clamp: flash_variant_ref(q, k, v, clamp) for clamp in clamps}
         flops = 4 * bh * n * n * 64
         if timed:
             plain = {clamp: time_ms(lambda: flash_variant_ref(q, k, v, clamp), reps=3)
-                     for clamp in (False, True)}
+                     for clamp in clamps}
             # (1, B·H, N, d): on three dimensions the call would not reach its fused kernels
             lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q[None], k[None], v[None]))
         for name, (transposed, clamp) in VARIANTS.items():
@@ -767,23 +792,32 @@ def main() -> None:
                 out = flash_variant(q, k, v, name, bq, bk)
                 torch.cuda.synchronize()
                 err = max_err(out, ref)
-                line = f"[variants] {label} {name} ({bq}, {bk}): max_abs_err {err:.3e} (tol {tol:.3e})"
+                route = kernel_route(dtype)
+                regs = registers_of(variant_kernel(dtype, bq, bk, transposed, clamp))
+                line = (f"[variants] {label} {name} ({bq}, {bk}): route {route}, {regs} registers; "
+                        f"max_abs_err {err:.3e} (tol {tol:.3e})")
                 if timed:
                     ms = time_ms(lambda: flash_variant(q, k, v, name, bq, bk), reps=5)
                     note = record(records, f"flash_variant_{name}", f"{label} tiles ({bq}, {bk})",
                                   err, ms, plain[clamp],
                                   bound_ms(flops, nbytes(q, k, v, out), dtype), lib_ms)
+                    records[f"flash_variant_{name}"].setdefault("kernel_route", route)
                     line += (f"; kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
                              f"{plain[clamp]:.3f} ms, {note}")
                 log(line)
                 if not err <= tol:
                     fail(f"flash variant {name} ({bq}, {bk}) {label} disagrees with its plain version")
-        out, lse = flash_v1_with_lse(q, k, v)
-        torch.cuda.synchronize()
-        lse_err = float((lse - refs[False][1]).abs().max())
-        log(f"[variants] {label} v1 log-sum-exp err {lse_err:.3e} (tol 1e-4)")
-        if not lse_err <= 1e-4:
-            fail(f"flash variant v1 {label}: log-sum-exp disagrees")
+                if regs is None:
+                    fail(f"the build log has no register count for flash variant {name} "
+                         f"({bq}, {bk}) in {dtype}")
+            if name == "v1":  # log Σp, the log of `_flash_kernel`'s denominator
+                for bq, bk in TILE_MENU[dtype]:
+                    _, lse = flash_v1_with_lse(q, k, v, bq, bk)
+                    torch.cuda.synchronize()
+                    lse_err = float((lse - refs[CLAMP_V1][1]).abs().max())
+                    log(f"[variants] {label} v1 ({bq}, {bk}) log Σp err {lse_err:.3e} (tol 1e-4)")
+                    if not lse_err <= 1e-4:
+                        fail(f"flash variant v1 ({bq}, {bk}) {label}: log Σp disagrees")
         return refs
 
     for label, bh, n, dtype in (("B·H=160 N=4096", 160, 4096, torch.bfloat16),
@@ -795,15 +829,16 @@ def main() -> None:
         check_variants(label, q, k, v, timed=True)
         del q, k, v
         torch.cuda.empty_cache()
-    # logits far outside ±60: v3/v4 follow the clamped form, v1/v2 the softmax
+    # logits past 80: v1 follows the form clamped at ±75, v3/v4 the one at
+    # ±60, v2 the softmax
     q, k, v = (randn(10, 1024, 64, scale=sc) for sc in (9.0, 2.4, 0.3))
     logit_max = float((q[:1].float() @ k[:1].float().transpose(1, 2)).abs().max()) / 8
     refs = check_variants("clamp active", q, k, v, timed=False)
-    apart = max_err(refs[True][0], refs[False][0])
-    log(f"[variants] clamp active: largest |logit| {logit_max:.1f}; the clamped form is "
-        f"{apart:.3e} from softmax there")
-    if not (logit_max > 80 and apart > 0.1):
-        fail("the clamp-active case does not drive the logits past the clamp")
+    apart = {c: max_err(refs[c][0], refs[None][0]) for c in (CLAMP_V1, CLAMP_EXP)}
+    log(f"[variants] clamp active: largest |logit| {logit_max:.1f}; the forms clamped at ±75 "
+        f"and ±60 are {apart[CLAMP_V1]:.3e} and {apart[CLAMP_EXP]:.3e} from softmax there")
+    if not (logit_max > 80 and min(apart.values()) > 0.1):
+        fail("the clamp-active case does not drive the logits past both clamps")
     for name, fn in (("fused_groupnorm_silu",
                       lambda t: fused_groupnorm_silu(t, *ln_params(64))),
                      ("flash_variant", lambda t: flash_variant(t, t, t, "v3"))):

@@ -114,6 +114,30 @@ def test_sample_matches_jax_engine(engines, batched):
     U.assert_close(img, want_img, RTOL, ATOL, "decoded image")
 
 
+class _RecordingEngine:
+    """An engine stand-in that records the search mode of each sample call."""
+
+    device = torch.device("cpu")
+
+    def __init__(self):
+        self.seen = []
+
+    def sample(self, arr, generator=None, **kw):
+        self.seen.append((arr["seg_mask"].shape[0], kw["noise_search_batched"]))
+        return None, {}
+
+
+@pytest.mark.parametrize("b,batched", [(1, True), (16, True), (17, False), (32, False)])
+def test_predictor_default_search_boundary(b, batched):
+    """10 candidates a sample: batched up to 160 rows (B = 16), the card's
+    cap; sequential beyond (320 rows ran out of memory on an 80 GB card)."""
+    engine = _RecordingEngine()
+    pred = Predictor(engine, noise_iters=10, noise_search_batched=True)
+    assert pred.noise_search_max_rows == 160
+    pred({"seg_mask": np.zeros((b, 12), np.float32)})
+    assert engine.seen == [(b, batched)]
+
+
 def test_predictor_float_batch_and_search_choice(engines, monkeypatch):
     _, _, pe = engines
     nb = U.numpy_batch(2, seed=6)

@@ -39,6 +39,8 @@ from udifftext_tpu_torch.ops.cross_attention import (
     fused_cross_attention_ref,
 )
 from udifftext_tpu_torch.ops.flash_variants import (
+    CLAMP_EXP,
+    CLAMP_V1,
     TILE_MENU,
     VARIANTS,
     flash_v1_with_lse,
@@ -700,16 +702,17 @@ def test_groupnorm_rejects_what_it_does_not_take(gen):
 ])
 @pytest.mark.parametrize("variant", list(VARIANTS))
 def test_flash_variant_matches_plain(gen, variant, bh, n, dtype, hot):
-    """Every tile pair of the dtype's menu; `hot` drives the logits past ±60,
-    where v3/v4 follow the clamped plain version and v1/v2 the softmax."""
+    """Every tile pair of the dtype's menu; `hot` drives the logits past 80,
+    where v1 follows the plain version clamped at ±75, v3/v4 the one clamped
+    at ±60 and v2 the softmax."""
     scales = (9.0, 2.4, 0.3) if hot else (0.3, 0.3, 0.3)
     q, k, v = ((torch.randn(bh, n, 64, generator=gen, device="cuda") * s).to(dtype)
                for s in scales)
     clamp = VARIANTS[variant][1]
-    ref, _ = flash_variant_ref(q, k, v, clamp)
+    ref, ref_lse = flash_variant_ref(q, k, v, clamp)
     if hot:
-        assert float((q[:1].float() @ k[:1].float().transpose(1, 2)).abs().max()) / 8 > 60
-        other, _ = flash_variant_ref(q, k, v, not clamp)
+        assert float((q[:1].float() @ k[:1].float().transpose(1, 2)).abs().max()) / 8 > 80
+        other, _ = flash_variant_ref(q, k, v, None if clamp else CLAMP_V1)
         assert float((ref.float() - other.float()).abs().max()) > 0.1
     for bq, bk in TILE_MENU[dtype]:
         before = flash_variant.launches[variant]
@@ -718,6 +721,9 @@ def test_flash_variant_matches_plain(gen, variant, bh, n, dtype, hot):
         assert flash_variant.launches[variant] == before + 1
         assert torch.isfinite(out).all()
         _check(out, ref)
+        if variant == "v1":  # log Σp, also where the clamp binds
+            _, lse = flash_v1_with_lse(q, k, v, bq, bk)
+            assert float((lse - ref_lse).abs().max()) <= 1e-4
 
 
 def test_flash_variant_v1_lse_and_cross_lengths(gen):
@@ -725,10 +731,10 @@ def test_flash_variant_v1_lse_and_cross_lengths(gen):
     k, v = ((torch.randn(4, 1024, 64, generator=gen, device="cuda") * 0.5).bfloat16()
             for _ in range(2))
     out, lse = flash_v1_with_lse(q, k, v, 128, 128)
-    ref, ref_lse = flash_variant_ref(q, k, v, False)
+    ref, ref_lse = flash_variant_ref(q, k, v, CLAMP_V1)
     _check(out, ref)
     assert float((lse - ref_lse).abs().max()) <= 1e-4
-    _check(flash_variant(q, k, v, "v4", 64, 128), flash_variant_ref(q, k, v, True)[0])
+    _check(flash_variant(q, k, v, "v4", 64, 128), flash_variant_ref(q, k, v, CLAMP_EXP)[0])
 
 
 def test_flash_variant_rejects_what_it_does_not_take(gen):

@@ -75,6 +75,17 @@ def test_flash_gate(nq, nk, d, want):
     assert A.flash_ok(q, torch.zeros(1, nk, 1, d)) is False  # CPU tensors stay plain
 
 
+@pytest.mark.parametrize("dtype,nq,d,want", [
+    (torch.bfloat16, 4096, 64, True), (torch.bfloat16, 1024, 64, True),
+    (torch.bfloat16, 640, 128, True), (torch.bfloat16, 256, 64, False),
+    (torch.float32, 4096, 64, False), (torch.float32, 1024, 64, False),  # the plain path is faster
+    (torch.float16, 1024, 64, False),  # no flash kernel takes fp16
+])
+def test_flash_auto_gate_by_dtype_and_shape(dtype, nq, d, want):
+    assert A.flash_dtype_ok(dtype) is (dtype == torch.bfloat16)
+    assert A.flash_auto_ok(dtype, nq, nq, d) is want
+
+
 @pytest.mark.parametrize("b,n,c", [(2, 128, 32), (1, 96, 64)])
 def test_geglu_plain_matches_jax_ref(b, n, c):
     rs = np.random.RandomState(2)

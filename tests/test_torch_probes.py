@@ -4,8 +4,9 @@
 own body, `udifftext_tpu.ops.groupnorm._gn_kernel`, run through
 `pl.pallas_call(..., interpret=True)`, and to `silu(GroupNorm32(x))`. The
 flash variants' plain versions are held to the bodies of
-`scripts/flash_variants.py` (`_kernel_v2`, `_kernel_v3`) and to the shipped
-`_flash_kernel`, run the same way. Inputs come from numpy seeds and go to
+`scripts/flash_variants.py` (`_kernel_v2`, `_kernel_v3`) and v1 to the
+shipped `_flash_kernel` that `v1_fn` runs, run the same way, also where
+their clamps bind. Inputs come from numpy seeds and go to
 both sides.
 
 Tolerances. GroupNorm fp32: rtol 1e-3, atol 1e-4, the JAX kernel's own
@@ -34,7 +35,7 @@ from udifftext_tpu.ops.groupnorm import _gn_kernel
 from udifftext_tpu_torch.ops import flash_variants as FV
 from udifftext_tpu_torch.ops import groupnorm as GN
 from udifftext_tpu_torch.scripts import flash_variants as variants_probe
-from udifftext_tpu_torch.scripts import resblock_probe
+from udifftext_tpu_torch.scripts import resblock_probe, sizing_probe
 
 REPO = Path(__file__).resolve().parent.parent
 TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -220,7 +221,7 @@ def _qkv(seed, q_scale=1.0, shape=(2, 256, 64)):
 def test_flash_variant_matches_jax_body(jax_script, variant, q_scale):
     q, k, v = _qkv(3, q_scale)
     logit_max = float(np.abs(np.einsum("bqd,bkd->bqk", q, k)).max()) / 8
-    assert (logit_max > 60) == (q_scale > 1)
+    assert (logit_max > FV.CLAMP_V1) == (q_scale > 1)
     tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
     got = FV.flash_variant(tq, tk, tv, variant, 64, 64)  # CPU tensors: the plain version
     transposed, clamp = FV.VARIANTS[variant]
@@ -229,13 +230,16 @@ def test_flash_variant_matches_jax_body(jax_script, variant, q_scale):
     jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
     if variant == "v3":
         want, = _jax_variant(jax_script._kernel_v3, jq, jk, jv, 128, 64)
-    elif variant == "v1" and q_scale == 1:
-        # the shipped TPU forward is max-free with a clamp at ±75 that never
-        # binds here: exact softmax, and its denominator is exp(lse)
+    elif variant == "v1":
+        # `v1_fn` runs the shipped TPU forward: max-free, logits clamped at
+        # ±75, its denominator `l` saved; v1's second output is log l
         want, l = _jax_variant(_flash_kernel, jq, jk, jv, 128, 64, n_out=2, precision=None)
-        U.assert_close(ref_lse, np.log(np.asarray(l))[:, 0], 1e-5, 1e-5, "log-sum-exp")
-    else:  # v2, v4, and v1 where the shipped kernel's own clamp would bind: the online-max body
-        want, = _jax_variant(jax_script._kernel_v2, jq, jk, jv, 128, 64, clamp_exp=clamp)
+        U.assert_close(ref_lse, np.log(np.asarray(l))[:, 0], 1e-5, 1e-5, "log of l")
+        _, lse = FV.flash_v1_with_lse(tq, tk, tv)
+        assert torch.equal(lse, ref_lse)
+    else:  # v2 (online max), v4 (clamp 60)
+        want, = _jax_variant(jax_script._kernel_v2, jq, jk, jv, 128, 64,
+                             clamp_exp=clamp is not None)
     U.assert_close(got, np.asarray(want), 1e-5, 1e-5, variant)
     # past the clamp the two functions part; inside it they are one
     softmax = torch.softmax(torch.einsum("bqd,bkd->bqk", tq, tk) / 8, -1) @ tv
@@ -243,11 +247,24 @@ def test_flash_variant_matches_jax_body(jax_script, variant, q_scale):
     assert (apart > 0.1) if (clamp and q_scale > 1) else (apart < 1e-5)
 
 
+def test_flash_variant_clamps_are_the_references():
+    """v1 clamps where `_flash_kernel` does, v3/v4 where the JAX probe's
+    `clamp_exp` does, v2 not at all; v1 and v3 share the rows layout, v2 and
+    v4 the transposed one."""
+    from udifftext_tpu.ops import flash_attention as jax_flash
+
+    assert FV.VARIANTS["v1"] == (False, jax_flash._CLAMP)
+    assert "jnp.clip(st, -60.0, 60.0)" in (REPO / "scripts" / "flash_variants.py").read_text()
+    assert FV.VARIANTS["v3"] == (False, 60.0) and FV.VARIANTS["v4"] == (True, 60.0)
+    assert FV.VARIANTS["v2"] == (True, None)
+    assert FV.kernel_route(torch.bfloat16) == "mma" and FV.kernel_route(torch.float32) == "fma"
+
+
 def test_flash_variant_ref_chunks_agree(monkeypatch):
     q, k, v = (torch.from_numpy(a) for a in _qkv(4, shape=(5, 128, 64)))
-    whole = FV.flash_variant_ref(q, k, v, True)
+    whole = FV.flash_variant_ref(q, k, v, FV.CLAMP_EXP)
     monkeypatch.setattr(FV, "_REF_CHUNK_BYTES", 2 * 4 * 128 * 128)  # two batch·heads a chunk
-    for got, want in zip(FV.flash_variant_ref(q, k, v, True), whole):
+    for got, want in zip(FV.flash_variant_ref(q, k, v, FV.CLAMP_EXP), whole):
         assert torch.equal(got, want)
 
 
@@ -292,7 +309,7 @@ def test_resblock_probe_returns_every_label(capsys):
 def test_flash_variants_probe_returns_every_label(dtype):
     got = variants_probe.run(reps=1, batch=1, heads=2, n=128, runs=1, device="cpu", dtype=dtype)
     want = [variants_probe.SHIPPED_LABEL]
-    want += [variants_probe.variant_label(name, bq, bk) for name in FV.VARIANTS
+    want += [variants_probe.variant_label(name, bq, bk, dtype) for name in FV.VARIANTS
              for bq, bk in FV.TILE_MENU[dtype]]
     assert list(got) == want + [variants_probe.LIBRARY_LABEL]
     assert all(ms > 0 and np.isfinite(tf) for ms, tf in got.values())
@@ -304,6 +321,22 @@ def test_flash_variants_probe_fails_on_a_wrong_output(monkeypatch):
     with pytest.raises(RuntimeError, match="from softmax attention"):
         variants_probe.run(reps=1, batch=1, heads=1, n=128, runs=1, device="cpu",
                            dtype=torch.float32)
+
+
+def test_sizing_probe_checks_its_flows_on_the_cpu():
+    """The attention timing runs (the host clock, the plain versions); the
+    memory measurement refuses the CPU, which has no device peak."""
+    got = sizing_probe.attention_fp32(shapes=(("tiny", 1, 128, 2),), reps=1, runs=1,
+                                      device="cpu")
+    assert list(got) == ["tiny"] and all(ms > 0 for ms in got["tiny"])
+    batch = sizing_probe.synthetic_batch(3, size=32)
+    assert batch["image"].shape == (3, 32, 32, 3) and batch["label_ids"].shape == (3, 12)
+    assert float(np.abs(batch["masked"] - batch["image"] * (1 - batch["mask"])).max()) == 0
+    with pytest.raises(RuntimeError, match="card only"):
+        sizing_probe.search_memory(device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            sizing_probe.main([])
 
 
 @pytest.mark.parametrize("probe", [resblock_probe, variants_probe],

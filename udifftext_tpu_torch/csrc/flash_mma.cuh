@@ -1,5 +1,6 @@
 // Building blocks of the tensor-core kernels (flash_attention.cu,
-// flash_attention_bwd.cu, the "mma" route of geglu.cu) on Hopper (sm_90a), for
+// flash_attention_bwd.cu, the "mma" route of geglu.cu, flash_variants.cu) on
+// Hopper (sm_90a), for
 // bf16 tiles of 64 columns:
 //
 //   - tiles in shared memory: rows of 64 bf16 = 128 bytes, the 16-byte chunk
@@ -13,6 +14,8 @@
 //   - `wgmma.mma_async` m64n64k16 with fp32 accumulation: A and B both from
 //     shared memory (`wgmma_ss`), or A from registers and B MN-major from
 //     shared memory (`wgmma_rs`), and 64×64×64 tile products built of four;
+//     for the flash-variant probe also both operands MN-major
+//     (`wgmma_ss_mn`) and m64n128k16 in either layout (`wgmma_ss_n128`);
 //   - the accumulator's register layout: within a warpgroup, warp w owns rows
 //     16w .. 16w+15; a thread holds rows r = lane/4 and r + 8 and, for each
 //     j < 8, columns 8j + 2·(lane mod 4) + {0, 1}: d[4j], d[4j+1] in row r,
@@ -248,6 +251,79 @@ __device__ __forceinline__ void store_accumulator(const float (&d)[32], float s0
       *reinterpret_cast<uint4*>(dst + row * row_stride + chunk * 8) =
           *reinterpret_cast<const uint4*>(stage + swizzled(row, chunk));
   }
+}
+
+// ---- the forms of the flash-variant probe (flash_variants.cu) ----
+
+// The descriptor of an MN-major operand that spans two or more swizzled
+// tiles along M or N: `tile_descriptor` with the leading byte offset set to
+// `lbo_bytes`, the distance from one 64-column tile to the next.
+__device__ __forceinline__ uint64_t tile_descriptor_mn(uint32_t addr, uint32_t lbo_bytes) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
+         (static_cast<uint64_t>((lbo_bytes >> 4) & 0x3FFFu) << 16) | (64ull << 32) | (1ull << 62);
+}
+
+// d (64×64) = A·B (+ d if scale_d) with A and B both MN-major (the two
+// transpose immediates set): A 64×16 is sixteen rows of a swizzled tile whose
+// rows are the reduction index and whose 64 columns are M, B sixteen rows of
+// one whose columns are N. Reads a (key × d) V tile as Vᵀ.
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                            int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// m64n128k16: d (64×128 fp32, 64 registers; a thread holds columns
+// 8j + 2·(lane mod 4) + {0, 1} for j < 16, in the layout above) = A·B
+// (+ d if scale_d). TRANS 0: A and B K-major, as `wgmma_ss`; TRANS 1: both
+// MN-major, as `wgmma_ss_mn`, B then two tiles apart by the descriptor's
+// leading byte offset (`tile_descriptor_mn`).
+template <int TRANS>
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %67;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS));
 }
 
 }  // namespace mma

@@ -3,47 +3,54 @@ kernels and their plain versions.
 
 The kernels (csrc/flash_variants.cu, one templated source) replace the Pallas
 TPU kernels of `scripts/flash_variants.py`: `run_variant` → `_kernel_v2`
-(with and without `clamp_exp`) and `_kernel_v3`, and `v1_fn`, the shipped TPU
-forward `_flash_kernel` at caller-chosen block sizes.
+(with and without `clamp_exp`) and `_kernel_v3`, and `v1_fn`, which runs the
+shipped TPU forward `_flash_kernel` at caller-chosen block sizes.
 
-  v1  s = q·kᵀ, online max, acc += p·v; output and log-sum-exp
-  v2  "transposed": sᵀ = k·qᵀ, statistics per query column, accᵀ += vᵀ·pᵀ
-  v3  "clamped-exp": v1's layout with no running max
-  v4  v2 + v3
+  v1  rows layout (s = q·kᵀ, acc += p·v), clamp 75: `_flash_kernel`'s
+      function, output and log Σp (the log of its saved denominator `l`)
+  v2  transposed layout (sᵀ = k·qᵀ, accᵀ += vᵀ·pᵀ), online max: softmax
+  v3  rows layout, clamp 60
+  v4  transposed layout, clamp 60
 
-v3 and v4 compute p = exp(clip(s·scale, −60, 60)), out = Σp·v / Σp: a
-different function from softmax wherever a logit leaves ±60.
+A clamped variant computes p = exp(clip(s·scale, −C, C)), out = Σp·v / Σp
+with no running max: softmax while every logit stays inside ±C, a different
+function past it. `VARIANTS` holds each variant's layout and clamp. The rows
+layout with the online max is the shipped forward (`ops/flash_attention.py`),
+which the probe times beside these.
 
 Layout: q (B·H, Nq, 64), k/v (B·H, Nk, 64) contiguous → out like q. bf16 runs
-on tensor cores (wmma), fp32 on FMAs for the accuracy check. `flash_variant`
-launches the kernel for CUDA tensors (or raises on what it does not take) and
-runs the plain version, `flash_variant_ref`, for CPU tensors. Like the JAX
-variants it is forward-only: asked for a gradient, it raises. Only
-`scripts/flash_variants.py` calls it; the models use `ops/flash_attention.py`.
+on the `wgmma` kernel (route "mma"), fp32 on FMAs for the accuracy check
+(route "fma"). `flash_variant` launches the kernel for CUDA tensors (or raises
+on what it does not take) and runs the plain version, `flash_variant_ref`,
+for CPU tensors. Like the JAX variants it is forward-only: asked for a
+gradient, it raises. Only `scripts/flash_variants.py` calls it; the models use
+`ops/flash_attention.py`.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from . import _build
 
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
-             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+             + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 # q, k, v, o, lse, BH, Nq, Nk, D, bq, bk, transposed, clamp, scale, dtype, stream
 
 HEAD_DIM = 64
-CLAMP = 60.0
-# variant → (transposed, clamp)
-VARIANTS: Dict[str, Tuple[bool, bool]] = {
-    "v1": (False, False), "v2": (True, False), "v3": (False, True), "v4": (True, True),
+CLAMP_V1 = 75.0   # `_CLAMP` of udifftext_tpu/ops/flash_attention.py: `_flash_kernel`'s clamp
+CLAMP_EXP = 60.0  # `clamp_exp` of scripts/flash_variants.py (`_kernel_v2`, `_kernel_v3`)
+# variant → (transposed, clamp: None for the online max)
+VARIANTS: Dict[str, Tuple[bool, Optional[float]]] = {
+    "v1": (False, CLAMP_V1), "v2": (True, None), "v3": (False, CLAMP_EXP), "v4": (True, CLAMP_EXP),
 }
 # (block_q, block_k) pairs the source instantiates, by dtype. They are sized
 # for 227 KB of shared memory and the register file, not for the TPU's VMEM
-# (its probe ran 512-1024 × 256-512).
+# (its probe ran 512-1024 × 256-512). bf16: every pair for both layouts, 0
+# bytes of spill (the build log, `chip_smoke.py` phase 2); fp32 (64, 64).
 TILE_MENU = {
     torch.bfloat16: ((64, 64), (64, 128), (128, 64), (128, 128)),
     torch.float32: ((64, 64),),
@@ -51,11 +58,16 @@ TILE_MENU = {
 _REF_CHUNK_BYTES = 2 << 30  # logits of one chunk of batch·heads in the plain version
 
 
+def kernel_route(dtype: torch.dtype) -> str:
+    """The kernel that serves `dtype`: "mma" (bf16, `wgmma`) or "fma" (fp32)."""
+    return "mma" if dtype == torch.bfloat16 else "fma"
+
+
 def flash_variant_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      clamp: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+                      clamp: Optional[float]) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version: fp32 from the inputs, one rounding of the output.
-    clamp False: exact softmax attention and its log-sum-exp. clamp True:
-    p = exp(clip(s·scale, −60, 60)), out = p·v / Σp, and log Σp. Batch·heads
+    clamp None: exact softmax attention and its log-sum-exp. clamp C:
+    p = exp(clip(s·scale, −C, C)), out = p·v / Σp, and log Σp. Batch·heads
     are walked in chunks so that the fp32 logits stay under 2 GiB."""
     scale = q.shape[-1] ** -0.5
     bh, nq, _ = q.shape
@@ -64,9 +76,9 @@ def flash_variant_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for i in range(0, bh, step):
         qf, kf, vf = (t[i:i + step].float() for t in (q, k, v))
         s = torch.einsum("bqd,bkd->bqk", qf, kf) * scale
-        if clamp:
+        if clamp is not None:
             m = torch.zeros_like(s[..., :1])
-            p = torch.exp(s.clamp_(-CLAMP, CLAMP))
+            p = torch.exp(s.clamp_(-clamp, clamp))
         else:
             m = s.amax(dim=-1, keepdim=True)
             p = torch.exp(s.sub_(m))
@@ -124,7 +136,7 @@ def _launch(q, k, v, variant: str, bq: int, bk: int, want_lse: bool):
     fn = _build.kernel_function("udt_flash_variant", _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              lse.data_ptr() if want_lse else None, bh, nq, k.shape[1], d, bq, bk,
-             int(transposed), int(clamp), HEAD_DIM ** -0.5, _build.DTYPE_CODES[q.dtype],
+             int(transposed), clamp or 0.0, HEAD_DIM ** -0.5, _build.DTYPE_CODES[q.dtype],
              _build.stream_handle(q))
     _build.check(err, "udt_flash_variant")
     flash_variant.launches[variant] += 1
@@ -154,7 +166,9 @@ def flash_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, variant: st
 
 def flash_v1_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bq: int = 64,
                       bk: int = 64):
-    """v1's two outputs, as the shipped forward kernel's: (out, lse (BH, Nq) fp32)."""
+    """v1's two outputs, as `_flash_kernel`'s: (out, log Σp (BH, Nq) fp32), the
+    log of its denominator `l`; that is the log-sum-exp while no logit leaves
+    ±75."""
     return _forward(q, k, v, "v1", bq, bk, True)
 
 

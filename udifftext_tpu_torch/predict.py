@@ -6,6 +6,14 @@ attend-and-excite and middle-step map capture when asked). The candidate-
 batched init-noise search is chosen per call: batched only while
 noise_iters·B stays within `noise_search_max_rows`, since the stacked
 candidates' UNet batch (and its captured maps) grows with it.
+
+The default of 160 rows is the card's, not the TPU build's 128 (sized for a
+v5e's HBM). Peak device memory of the demo flow at full width, bf16, CFG
+4.0, 10 candidates (`scripts/sizing_probe.py search`, NVIDIA H100 80GB HBM3,
+700 W, 79.2 GiB): the batched search 5.20 / 19.31 / 35.43 GiB at 10 / 80 /
+160 rows and out of memory at 320; the whole call (search, sampling steps,
+fp32 VAE decode) peaks in the search, and with the sequential search at
+4.44 / 13.24 / 23.31 / 43.44 GiB. 160 rows leave 44 GiB free; 320 do not fit.
 """
 
 from __future__ import annotations
@@ -30,7 +38,7 @@ class Predictor:
         detailed: bool = False,
         encprop_interval: int = 0,
         noise_search_batched: bool = False,
-        noise_search_max_rows: int = 128,
+        noise_search_max_rows: int = 160,
     ):
         if encprop_interval > 1:
             raise NotImplementedError("encoder-propagation sampling is not ported yet")

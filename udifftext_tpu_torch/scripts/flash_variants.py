@@ -5,22 +5,26 @@
 
 Times `ops.flash_variants.flash_variant` at B=32, H=5, N=4096, d=64, bf16
 (the CFG-doubled ds1 latent self-attention), every variant at every tile pair
-of the card's menu:
+of the card's menu, each label naming the kernel route that served it ("mma":
+`wgmma`, bf16; "fma": fp32):
 
-  v1  s = q·kᵀ, online max, acc += p·v (the shipped forward's function)
-  v2  transposed: sᵀ = k·qᵀ, statistics per query column, accᵀ += vᵀ·pᵀ
-  v3  v1's layout, clamped exp, no running max
-  v4  v2 + v3
+  v1  rows layout (s = q·kᵀ, acc += p·v), logits clamped at ±75, no running
+      max: the function of the TPU's shipped forward `_flash_kernel`
+  v2  transposed: sᵀ = k·qᵀ, statistics per query column, accᵀ += vᵀ·pᵀ,
+      online max
+  v3  v1's layout, clamped at ±60
+  v4  v2's layout, clamped at ±60
 
 beside the shipped forward kernel (`ops.flash_attention`: for bf16 the
-tensor-core kernel with scores in registers, 128 query rows by 64 keys; for
-fp32 the FMA kernel, 64×64) and, as the library yardstick that the port
+tensor-core kernel with scores in registers and the online max, 128 query
+rows by 64 keys, the rows layout's online-max form; for fp32 the FMA kernel,
+64×64) and, as the library yardstick that the port
 itself never calls, `torch.nn.functional.scaled_dot_product_attention` on the
 same tensors.
 Inputs come from numpy's `RandomState(0)`, scaled by 0.3, as in the JAX
 script. Every kernel's output on the first two batch·heads is held to plain
-fp32 softmax attention (max error < 0.02) before it is timed; a failed check
-raises. Each time is CUDA events around K back-to-back calls, divided by K,
+fp32 softmax attention (max error < 0.02; at these inputs no clamp binds)
+before it is timed; a failed check raises. Each time is CUDA events around K back-to-back calls, divided by K,
 the median of several such runs (on the CPU: the host clock and the plain
 versions, for checking the script). `run` returns {label: (ms, TFLOP/s)} with
 flops = 4·B·H·N²·d and prints one line per label.
@@ -36,18 +40,18 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.flash_attention import flash_attention
-from ..ops.flash_variants import TILE_MENU, VARIANTS, flash_variant
+from ..ops.flash_variants import TILE_MENU, VARIANTS, flash_variant, kernel_route
 from ._timing import probe_device, time_ms
 
 MAX_ERR = 0.02
-NAMES = {"v1": "v1 online-max", "v2": "v2 transposed", "v3": "v3 clamped-exp",
+NAMES = {"v1": "v1 clamp-75", "v2": "v2 transposed", "v3": "v3 clamped-exp",
          "v4": "v4 transposed+clamp"}
 SHIPPED_LABEL = "shipped flash_attention"
 LIBRARY_LABEL = "library scaled_dot_product_attention"
 
 
-def variant_label(variant: str, bq: int, bk: int) -> str:
-    return f"{NAMES[variant]} bq={bq} bk={bk}"
+def variant_label(variant: str, bq: int, bk: int, dtype: torch.dtype) -> str:
+    return f"{NAMES[variant]} bq={bq} bk={bk} {kernel_route(dtype)}"
 
 
 @torch.no_grad()
@@ -87,7 +91,7 @@ def run(reps: int = 40, batch: int = 32, heads: int = 5, n: int = 4096, runs: in
           to_bhnd=lambda o: o.transpose(1, 2).reshape(bh, n, d))
     for variant in VARIANTS:
         for bq, bk in TILE_MENU[dtype]:
-            timed(variant_label(variant, bq, bk),
+            timed(variant_label(variant, bq, bk, dtype),
                   lambda variant=variant, bq=bq, bk=bk: flash_variant(q, k, v, variant, bq, bk))
     # four dimensions: on (B·H, N, d) the call would not reach its fused kernels
     qh, kh, vh = (t.view(batch, heads, n, d) for t in (q, k, v))
