@@ -9,9 +9,10 @@ each printed on its own line:
 1. the card's name and power limit, as nvidia-smi prints them;
 2. the kernel build from udifftext_tpu_torch/csrc, with its time and the
    compiler's register and spill report of every kernel; it fails if a
-   tensor-core (`wgmma`) flash, GEGLU or flash-variant kernel (each of the
-   twelve instantiations of flash_variant_mma_kernel<BQ, BK, TR, CLAMP>)
-   spills or had its wgmma pipeline serialized;
+   tensor-core (`wgmma`) flash, GEGLU, flash-variant (each of the twelve
+   instantiations of flash_variant_mma_kernel<BQ, BK, TR, CLAMP>) or t_attn
+   kernel (cross_attn_mma_kernel<RG>, 64 and 128 rows a block) spills or had
+   its wgmma pipeline serialized;
 3. each forward kernel against its plain PyTorch version on the same CUDA
    tensors, at the main path's shapes: max error against the stated
    tolerance and both times (CUDA events, median of repeated runs); each
@@ -29,10 +30,20 @@ each printed on its own line:
    geglu_ff_ln) against their plain versions on seeded random tensors at the
    ds1 and ds2 widths, B=2 and B=32, bf16, and one fp32 case each (ln_gemm
    also at (2, 128, 1280) → 3840), and the gradients of each autograd
-   Function against the plain version's autograd;
+   Function against the plain version's autograd; fused_cross_attention
+   names its route ("mma": `wgmma`, bf16 at the ds1/ds2 widths; "wmma";
+   "fma": fp32) and rows a block, its time when 20 calls are queued back to
+   back, and beside it the unfused composition the block runs with
+   fuse_glue="off" and that composition's two cuBLAS products alone; two
+   more cases hold it with L = 64 and with logits past exp's fp32 range
+   (the max subtraction binding);
 3d. the probe-level kernels against their plain versions: fused_groupnorm_silu
    at the ResBlock widths (bf16, fp32, without SiLU at eps 1e-6, and under a
-   large common offset) beside F.group_norm + F.silu; every flash variant
+   large common offset), with N = 4133 (a ragged last CTA) and at the VAE
+   decoder's (1, 512, 512, 128) fp32, which must take route "two_pass" where
+   every other case takes "cluster", each with its plan, its back-to-back
+   time and the device launches a call counted by torch.profiler (1 on
+   "cluster", 2 on "two_pass"), beside F.group_norm + F.silu; every flash variant
    (v1-v4) at every tile pair at B·H = 160 and 10, N = 4096 and 1024, with
    its route ("mma": `wgmma`, bf16; "fma": fp32) and registers, beside
    scaled_dot_product_attention, plus a case whose logits pass 80, where v1
@@ -75,7 +86,8 @@ each printed on its own line:
    block (ds1), its launch counts per forward, map capture, and one backward
    (input and t_attn/t_norm gradients against the unfused block's);
 9. the ResBlock probe (udifftext_tpu_torch.scripts.resblock_probe) through its
-   entry function at batch 32, 320 channels, every label printed;
+   entry function at batch 32, 320 channels, every label printed, its
+   GroupNorm on route "cluster" (one device launch a call);
 10. the flash-variants probe (udifftext_tpu_torch.scripts.flash_variants)
    through its entry function at B=32, H=5, N=4096, every label printed
    with ms and TFLOP/s, the library line included.
@@ -94,8 +106,9 @@ second-to-last line is the kernels' JSON record: each kernel's `launches`
 counts the path named by its `launches_path` (training for the kernels the
 UNet runs, the glue probe for the four that only the fused block runs, the
 ResBlock probe for the fused GroupNorm, the variants probe for v1-v4),
-`launches_by_path` holds every path's count, and the two flash kernels carry
-`kernel_route`, the route of their recorded case. The last line is
+`launches_by_path` holds every path's count, and the flash, GEGLU,
+t_attn, GroupNorm and variant kernels carry `kernel_route`, the route of
+their recorded case. The last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -348,6 +361,7 @@ def main() -> None:
         flash_kernel_route,
     )
     from udifftext_tpu_torch.ops.cross_attention import (
+        cross_attention_plan,
         fused_cross_attention,
         fused_cross_attention_ref,
     )
@@ -369,7 +383,11 @@ def main() -> None:
         geglu_ff_ref,
         geglu_kernel_route,
     )
-    from udifftext_tpu_torch.ops.groupnorm import fused_groupnorm_silu, fused_groupnorm_silu_ref
+    from udifftext_tpu_torch.ops.groupnorm import (
+        fused_groupnorm_silu,
+        fused_groupnorm_silu_ref,
+        groupnorm_plan,
+    )
     from udifftext_tpu_torch.ops.ln_gemm import ln_gemm, ln_gemm3, ln_gemm3_ref, ln_gemm_ref
     from udifftext_tpu_torch.predict import Predictor
     from udifftext_tpu_torch.scripts import flash_variants as variants_probe
@@ -403,8 +421,9 @@ def main() -> None:
     for line in _build.library_path().with_suffix(".log").read_text().splitlines():
         m = re.search(r"entry function '\w*?((?:flash_fwd_mma|flash_bwd_dq_mma|flash_bwd_dkdv_mma"
                       r"|flash_fwd|flash_bwd_dq|flash_bwd_dkdv|geglu_mma|geglu_wmma"
-                      r"|geglu_simt|geglu_reduce|ln_gemm|cross_attn|gn_stats|gn_apply"
-                      r"|flash_variant_mma|flash_variant_fma)_kernel)(\w*)'", line)
+                      r"|geglu_simt|geglu_reduce|ln_gemm|cross_attn_mma|cross_attn|gn_stats"
+                      r"|gn_apply|gn_cluster|flash_variant_mma|flash_variant_fma)_kernel)(\w*)'",
+                      line)
         if m:
             kernel = m.group(1) + m.group(2).replace("__nv_bfloat16", "bf16")
         elif "spill stores" in line or "registers" in line:
@@ -424,15 +443,18 @@ def main() -> None:
         return (f"flash_variant_{route}_kernelILi{bq}ELi{bk}ELb{int(transposed)}"
                 f"ELb{int(clamp is not None)}EE")
 
-    # three flash kernels, the GEGLU kernel's instantiations <NT, G, RG> and
-    # the flash variants' <BQ, BK, TR, CLAMP> (v1 and v3 share theirs)
+    # three flash kernels, the GEGLU kernel's instantiations <NT, G, RG>, the
+    # flash variants' <BQ, BK, TR, CLAMP> (v1 and v3 share theirs) and the
+    # t_attn branch's <RG> (64 and 128 rows a block)
     variant_stems = {variant_kernel(torch.bfloat16, bq, bk, tr, cl)
                      for bq, bk in TILE_MENU[torch.bfloat16] for tr, cl in VARIANTS.values()}
-    n_mma = 3 + len(GEGLU_MMA_SHAPES) + len(variant_stems)
+    cross_stems = {f"cross_attn_mma_kernelILi{rg}EE" for rg in (1, 2)}
+    n_mma = 3 + len(GEGLU_MMA_SHAPES) + len(variant_stems) + len(cross_stems)
     names = " ".join(mma_kernels)
     if len(mma_kernels) != n_mma or not all(
             f"geglu_mma_kernelILi{nt}ELi{g_}ELi{rg}EE" in names
-            for nt, g_, rg in GEGLU_MMA_SHAPES) or not all(st in names for st in variant_stems):
+            for nt, g_, rg in GEGLU_MMA_SHAPES) or not all(
+                st in names for st in variant_stems | cross_stems):
         fail(f"the build log names {sorted(mma_kernels)}, not the {n_mma} tensor-core kernels")
 
     def registers_of(stem):
@@ -626,6 +648,68 @@ def main() -> None:
         if not all(e <= t and g_.dtype == w_.dtype for e, t, g_, w_ in zip(errs, tols, got, want)):
             fail(f"{name} gradients disagree with the plain version's autograd")
 
+    def t_attn_composition(x, ln_s, ln_b, wq, k, v, wo, bo, heads):
+        """The unfused t_attn branch the block runs with fuse_glue="off":
+        LayerNormF32, to_q, the plain attention of `CrossAttention`, to_out
+        with its bias, the residual."""
+        b, n, c = x.shape
+        xn = F.layer_norm(x.float(), (c,), ln_s, ln_b, 1e-5).to(x.dtype)
+        q = F.linear(xn, wq).reshape(b, n, heads, 64)
+        sim = (torch.einsum("bnhd,blhd->bhnl", q, k) * 64**-0.5).float()
+        o = torch.einsum("bhnl,blhd->bnhd", torch.softmax(sim, dim=-1).to(x.dtype), v)
+        return F.linear(o.reshape(b, n, heads * 64), wo, bo) + x
+
+    def cross_products_ms(x, wq, wo):
+        """The composition's two cuBLAS products alone (to_q, to_out), on
+        preallocated tensors of the working dtype."""
+        x2 = x.reshape(-1, x.shape[-1])
+        q = torch.empty((x2.shape[0], wq.shape[0]), dtype=x.dtype, device=dev)
+        o = torch.empty_like(x2)
+
+        def run():
+            torch.matmul(x2, wq.t(), out=q)
+            torch.matmul(q, wo.t(), out=o)
+        return time_ms(run)
+
+    def check_cross_attention(label, x, ln_s, ln_b, wq, wo, l, k_scale=1.0, timed=True):
+        """fused_cross_attention against its plain version on hoisted k, v of
+        L tokens (k scaled by `k_scale`), its route named; timed beside the
+        unfused composition and that composition's two products. Returns the
+        inputs."""
+        (b, n, c), dtype = x.shape, x.dtype
+        heads = wq.shape[0] // 64
+        k_, v_ = randn(b, l, heads, 64, dtype=dtype, scale=k_scale), randn(b, l, heads, 64, dtype=dtype)
+        bo = randn(c, dtype=dtype, scale=0.1)
+        ca_in = (x, ln_s, ln_b, wq, k_, v_, wo, bo)
+        out = fused_cross_attention(*ca_in, heads)
+        plan = fused_cross_attention.last_plan
+        ref = fused_cross_attention_ref(*ca_in, heads)
+        torch.cuda.synchronize()
+        err, tol = max_err(out, ref), tol_of(ref)
+        want = cross_attention_plan(dtype, b, n, c, heads * 64)
+        line = (f"[cross_attention] {label} (L={l}, {heads} heads): route {plan.route}, "
+                f"{plan.rows} rows a block; max_abs_err {err:.3e} (tol {tol:.3e})")
+        if timed:
+            ms = time_ms(lambda: fused_cross_attention(*ca_in, heads))
+            queued_ms = back_to_back_ms(lambda: fused_cross_attention(*ca_in, heads))
+            plain_ms = time_ms(lambda: fused_cross_attention_ref(*ca_in, heads), reps=5)
+            comp_ms = time_ms(lambda: t_attn_composition(*ca_in, heads))
+            gemm_ms = cross_products_ms(x, wq, wo)
+            flops = 2 * b * n * c * (2 * c + 2 * l)
+            note = record(records, "fused_cross_attention", label, err, ms, plain_ms,
+                          bound_ms(flops, nbytes(*ca_in, out), dtype))
+            records["fused_cross_attention"].setdefault("kernel_route", plan.route)
+            line += (f"; kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s; {queued_ms:.3f} ms "
+                     f"each when 20 are queued back to back), plain {plain_ms:.3f} ms, the "
+                     f"unfused composition {comp_ms:.3f} ms, its two cuBLAS products alone "
+                     f"{gemm_ms:.3f} ms, {note}")
+        log(line)
+        if not err <= tol:
+            fail(f"fused_cross_attention {label} disagrees with its plain version")
+        if plan != want or (plan.route == "mma") != (dtype == torch.bfloat16 and c in (320, 640)):
+            fail(f"fused_cross_attention {label} was served by {plan}, not {want}")
+        return ca_in
+
     glue_cases = [  # (label, B, N, C, dtype); the probe's shapes first
         ("ds1 B=32", 32, 4096, 320, torch.bfloat16), ("ds2 B=32", 32, 1024, 640, torch.bfloat16),
         ("ds1 B=2", 2, 4096, 320, torch.bfloat16), ("ds2 B=2", 2, 1024, 640, torch.bfloat16),
@@ -671,24 +755,7 @@ def main() -> None:
             fail(f"ln_gemm3 {label} disagrees with its plain version")
         del outs, refs
 
-        k_, v_ = (randn(b, 12, heads, 64, dtype=dtype) for _ in range(2))
-        bo = randn(c, dtype=dtype, scale=0.1)
-        ca_in = (x, ln_s, ln_b, ws[0], k_, v_, ws[1], bo)
-        out = fused_cross_attention(*ca_in, heads)
-        ref = fused_cross_attention_ref(*ca_in, heads)
-        torch.cuda.synchronize()
-        err, tol = max_err(out, ref), tol_of(ref)
-        ms = time_ms(lambda: fused_cross_attention(*ca_in, heads))
-        plain_ms = time_ms(lambda: fused_cross_attention_ref(*ca_in, heads), reps=5)
-        flops = 2 * m * c * (2 * c + 2 * 12)
-        note = record(records, "fused_cross_attention", label, err, ms, plain_ms,
-                      bound_ms(flops, nbytes(*ca_in, out), dtype))
-        log(f"[cross_attention] {label} (L=12, {heads} heads): max_abs_err {err:.3e} "
-            f"(tol {tol:.3e}); kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
-            f"{plain_ms:.3f} ms, {note}")
-        if not err <= tol:
-            fail(f"fused_cross_attention {label} disagrees with its plain version")
-        del out, ref
+        ca_in = check_cross_attention(label, x, ln_s, ln_b, ws[0], ws[1], 12)
 
         w1, b1 = randn(8 * c, c, dtype=dtype, scale=c**-0.5), randn(8 * c, dtype=dtype, scale=0.1)
         w2 = randn(c, 4 * c, dtype=dtype, scale=(4 * c) ** -0.5)
@@ -723,10 +790,51 @@ def main() -> None:
                         lambda *a: fused_cross_attention_ref(*a, heads), ca_in, g1)
             check_grads("geglu_ln", geglu_ff_ln, geglu_ff_ln_ref, ff_in, g1)
             del g1, g3
-        del x, ws, w3, k_, v_, bo, ca_in, w1, b1, w2, b2, ff_in
+        del x, ws, w3, ca_in, w1, b1, w2, b2, ff_in
         torch.cuda.empty_cache()
 
+    # the t_attn kernel's edges: a full 64-token context, and logits large
+    # enough (|s| past 88, where exp overflows fp32) that the softmax rests
+    # on its max subtraction
+    for label, b, n, c, l, k_scale in (("ds1 B=2 L=64", 2, 4096, 320, 64, 1.0),
+                                       ("ds2 B=2 max binding", 2, 1024, 640, 12, 40.0)):
+        x = randn(b, n, c)
+        ln_s, ln_b = ln_params(c)
+        wq, wo = (randn(c, c, scale=c**-0.5) for _ in range(2))
+        ca_in = check_cross_attention(label, x, ln_s, ln_b, wq, wo, l, k_scale, timed=False)
+        if k_scale > 1:
+            xn = F.layer_norm(x.float(), (c,), ln_s, ln_b, 1e-5).to(x.dtype)
+            q = F.linear(xn, wq).float().reshape(b, n, c // 64, 64)
+            top = float(torch.einsum("bnhd,blhd->bhnl", q, ca_in[4].float()).abs().max()) / 8
+            log(f"[cross_attention] {label}: largest |logit| {top:.1f}")
+            if not top > 88:
+                fail("the max-binding case does not drive the logits past exp's fp32 range")
+        del x, ca_in
+    torch.cuda.empty_cache()
+
     # 3d. the probe-level kernels: fused GroupNorm+SiLU and the flash variants
+    def device_launches(fn, calls: int = 4) -> float:
+        """Kernels one call of `fn` puts on the device: torch.profiler's count
+        over `calls` calls, divided by `calls`. The profiler can drop device
+        activity at the edges of its window (a two-kernel call once counted
+        one), so the calls sit between two marker kernels and pauses."""
+        from torch.profiler import ProfilerActivity, profile
+
+        marker = torch.zeros(1, device=dev)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for step in range(calls + 2):
+                if step in (0, calls + 1):
+                    time.sleep(0.02)
+                    marker.add_(1)
+                else:
+                    fn()
+                torch.cuda.synchronize()
+            time.sleep(0.02)
+        names = ("gn_cluster_kernel", "gn_stats_kernel", "gn_apply_kernel")
+        return sum(ev.count for ev in prof.key_averages()
+                   if any(k in ev.key for k in names)) / calls
+
     gn_cases = [  # (label, shape, dtype, with_silu, eps, common offset); the probe's shape first
         ("ds1 B=32", (32, 64, 64, 320), torch.bfloat16, True, 1e-5, 0.0),
         ("ds1 B=2", (2, 64, 64, 320), torch.bfloat16, True, 1e-5, 0.0),
@@ -736,12 +844,17 @@ def main() -> None:
         ("ds2 B=2 fp32", (2, 32, 32, 640), torch.float32, True, 1e-5, 0.0),
         ("(2, 1000, 64) fp32, no SiLU, eps 1e-6", (2, 1000, 64), torch.float32, False, 1e-6, 0.0),
         ("ds1 B=2 fp32, offset 1000", (2, 64, 64, 320), torch.float32, True, 1e-5, 1000.0),
+        # N = 4133 rows: the last CTA of a cluster holds fewer than the others
+        ("ragged N=4133 B=2", (2, 4133, 320), torch.bfloat16, True, 1e-5, 0.0),
+        # the VAE decoder's last GroupNorm: 4 MB a (sample, group), more than 8 CTAs hold
+        ("VAE decoder (1, 512, 512, 128) fp32", (1, 512, 512, 128), torch.float32, True, 1e-5, 0.0),
     ]
     for label, shape, dtype, with_silu, eps, offset in gn_cases:
         c = shape[-1]
         x = (torch.randn(*shape, generator=g, device=dev) + offset).to(dtype)
         gn_s, gn_b = ln_params(c)
         out = fused_groupnorm_silu(x, gn_s, gn_b, 32, eps, with_silu)
+        plan = fused_groupnorm_silu.last_plan
         ref = fused_groupnorm_silu_ref(x, gn_s, gn_b, 32, eps, with_silu)
         torch.cuda.synchronize()
         err = max_err(out, ref)
@@ -749,6 +862,7 @@ def main() -> None:
         # spacing is 6e-5 and that were summed in another order
         tol = 1e-3 if offset else tol_of(ref)
         ms = time_ms(lambda: fused_groupnorm_silu(x, gn_s, gn_b, 32, eps, with_silu))
+        queued_ms = back_to_back_ms(lambda: fused_groupnorm_silu(x, gn_s, gn_b, 32, eps, with_silu))
         plain_ms = time_ms(lambda: fused_groupnorm_silu_ref(x, gn_s, gn_b, 32, eps, with_silu),
                            reps=5)
         # the library's call for the same function, on the channels-first view of the same tensor
@@ -761,13 +875,32 @@ def main() -> None:
         xc = xv.contiguous()
         lib_nchw_ms = time_ms(lambda: F.silu(F.group_norm(xc, 32, w_, b_, eps)) if with_silu
                               else F.group_norm(xc, 32, w_, b_, eps))
+        lib_queued_ms = back_to_back_ms(lambda: F.silu(F.group_norm(xc, 32, w_, b_, eps))
+                                        if with_silu else F.group_norm(xc, 32, w_, b_, eps))
         note = record(records, "fused_groupnorm_silu", label, err, ms, plain_ms,
                       bound_ms(10 * x.numel(), nbytes(x, gn_s, gn_b, out), dtype), lib_ms)
-        log(f"[groupnorm] {label} {shape}: max_abs_err {err:.3e} (tol {tol:.3e}); kernel "
-            f"{ms:.3f} ms ({nbytes(x, out) / ms / 1e6:.0f} GB/s), plain {plain_ms:.3f} ms, {note}; "
-            f"library on an NCHW copy {lib_nchw_ms:.3f} ms")
+        records["fused_groupnorm_silu"].setdefault("kernel_route", plan.route)
+        how = (f"route {plan.route}, {plan.slice_groups} groups a slice, {plan.cluster} CTAs a "
+               f"cluster, {plan.rows} rows a CTA, {plan.smem_bytes} bytes of shared memory"
+               if plan.route == "cluster" else f"route {plan.route}, {plan.rows} rows a chunk")
+        if label in ("ds1 B=32", gn_cases[-1][0]):
+            launched = device_launches(lambda: fused_groupnorm_silu(x, gn_s, gn_b, 32, eps,
+                                                                    with_silu))
+            how += f"; {launched:g} device launch(es) a call (torch.profiler, 4 calls)"
+            if launched != plan.launches:
+                fail(f"fused_groupnorm_silu {label}: {launched:g} device launches a call, "
+                     f"the plan says {plan.launches}")
+        log(f"[groupnorm] {label} {shape}: {how}; max_abs_err {err:.3e} (tol {tol:.3e}); kernel "
+            f"{ms:.3f} ms ({nbytes(x, out) / ms / 1e6:.0f} GB/s; {queued_ms:.4f} ms each when 20 "
+            f"are queued back to back), plain {plain_ms:.3f} ms, {note}; library on an NCHW copy "
+            f"{lib_nchw_ms:.3f} ms ({lib_queued_ms:.4f} ms queued)")
         if not err <= tol:
             fail(f"fused_groupnorm_silu {label} disagrees with its plain version")
+        want_route = "two_pass" if label == gn_cases[-1][0] else "cluster"
+        if plan.route != want_route or plan != groupnorm_plan(
+                dtype, shape[0], x.numel() // (shape[0] * c), c, 32,
+                torch.cuda.get_device_properties(dev).multi_processor_count):
+            fail(f"fused_groupnorm_silu {label} was served by {plan}, not route {want_route}")
         del x, out, ref, xv, xc
     torch.cuda.empty_cache()
 
@@ -1239,9 +1372,13 @@ def main() -> None:
     probe = resblock_probe.run(batch=32, channels=320, reps=reps, runs=runs, device=str(dev))
     torch.cuda.synchronize()
     launches = by_path["resblock_probe"] = counts(*kernel_fns)
-    # two launches per fused ResBlock call, one per glue call, one for the difference
+    # two wrapper calls per fused ResBlock call, one per glue call, one for the difference
     want = expected(fused_groupnorm_silu=2 * calls + calls + 1)
-    log(f"[resblock_probe] {len(probe)} labels at B=32, C=320, K={reps}; launches {launches}")
+    gn_plan = fused_groupnorm_silu.last_plan
+    log(f"[resblock_probe] {len(probe)} labels at B=32, C=320, K={reps}; launches {launches}; "
+        f"route {gn_plan.route}, {gn_plan.launches} device launch(es) a call")
+    if gn_plan.route != "cluster" or gn_plan.launches != 1:
+        fail(f"the ResBlock probe's GroupNorm ran on {gn_plan}, not one cluster launch a call")
     if launches != want:
         fail(f"ResBlock probe launches {launches}, expected {want}")
     diff = probe.pop(resblock_probe.DIFF_LABEL)

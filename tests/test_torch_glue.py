@@ -136,7 +136,7 @@ def _cross_inputs(b, n, c, heads, dh, l, seed):
     return rs, jin, pin
 
 
-@pytest.mark.parametrize("l", [12, 2])
+@pytest.mark.parametrize("l", [12, 2, 16, 64])
 @pytest.mark.parametrize("b,n,c,heads,dh", SHAPES)
 def test_fused_cross_attention_matches_jax_ref_and_grad(b, n, c, heads, dh, l):
     rs, jin, pin = _cross_inputs(b, n, c, heads, dh, l, 3)
@@ -234,6 +234,50 @@ def test_plain_paths_count_no_launches_and_gates_state_the_kernel_limits():
     assert not PX.cross_attention_supported(z(2, 128, 320), z(2, 65, 5, 64), 5)
     assert not PX.cross_attention_supported(z(2, 96, 320), z(2, 12, 5, 64), 5)    # N % 64
     assert not PX.cross_attention_supported(z(2, 128, 32), z(2, 12, 4, 8), 4)     # d != 64
+
+
+@pytest.mark.parametrize("dtype,b,n,c,want", [
+    (torch.bfloat16, 32, 4096, 320, ("mma", 128)),  # glue probe ds1: two warpgroups share each weight tile
+    (torch.bfloat16, 2, 4096, 320, ("mma", 64)),    # 64 blocks of 128 rows would leave SMs idle
+    (torch.bfloat16, 32, 1024, 640, ("mma", 64)),   # 128 rows of C = 640 exceed shared memory
+    (torch.bfloat16, 2, 1024, 640, ("mma", 64)),
+    (torch.bfloat16, 1, 64, 128, ("mma", 64)),      # the narrowest "mma" width
+    (torch.bfloat16, 2, 1024, 704, ("wmma", 32)),   # past the widest "mma" width, 640
+    (torch.bfloat16, 2, 1024, 768, ("wmma", 32)),
+    (torch.bfloat16, 2, 256, 1280, ("wmma", 32)),   # ds4
+    (torch.bfloat16, 2, 128, 96, ("wmma", 64)),     # C % 64 != 0
+    (torch.bfloat16, 2, 128, 64, ("wmma", 64)),     # one x tile cannot stage the fp32 output
+    (torch.float32, 32, 4096, 320, ("fma", 16)),
+    (torch.float32, 2, 1024, 640, ("fma", 16)),
+])
+def test_cross_attention_plan_routes(dtype, b, n, c, want):
+    plan = PX.cross_attention_plan(dtype, b, n, c, c)
+    assert (plan.route, plan.rows) == want
+    if plan.route == "mma":
+        assert plan.smem_bytes == PX.mma_smem_bytes(plan.rows // 64, c, c) <= PX.SMEM_MAX
+        assert n % plan.rows == 0
+    else:
+        assert plan.smem_bytes == 0
+
+
+def test_cross_attention_plan_refuses_nothing_the_gate_takes():
+    """Every (dtype, shape) the gate takes has a route, and an "mma" plan's
+    blocks hold whole row tiles of one batch element within shared memory."""
+    z = torch.zeros
+    for dtype in (torch.bfloat16, torch.float32):
+        for c in range(16, PX.MAX_C + 1, 16):
+            for heads in sorted({1, max(1, c // 64), PX.MAX_C // 64}):
+                for b, n in ((1, 64), (2, 192), (32, 4096)):
+                    if not PX.cross_attention_supported(z(1, 64, c, dtype=dtype),
+                                                        z(1, 12, heads, 64), heads):
+                        continue
+                    plan = PX.cross_attention_plan(dtype, b, n, c, heads * 64)
+                    assert plan.route == ("fma" if dtype == torch.float32 else
+                                          "mma" if c % 64 == 0 and c >= 128
+                                          and PX.mma_smem_bytes(1, c, heads * 64) <= PX.SMEM_MAX
+                                          else "wmma")
+                    if plan.route == "mma":
+                        assert n % plan.rows == 0 and plan.smem_bytes <= PX.SMEM_MAX
 
 
 # -- (c)-(g) the modules ------------------------------------------------------

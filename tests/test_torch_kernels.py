@@ -34,6 +34,7 @@ from udifftext_tpu_torch.ops.flash_attention import (
 from udifftext_tpu_torch.models.attention import BasicTransformerBlock
 from udifftext_tpu_torch.models.layers import cast_weights
 from udifftext_tpu_torch.ops.cross_attention import (
+    cross_attention_plan,
     cross_attention_supported,
     fused_cross_attention,
     fused_cross_attention_ref,
@@ -57,7 +58,11 @@ from udifftext_tpu_torch.ops.geglu import (
     geglu_kernel_route,
     geglu_plan,
 )
-from udifftext_tpu_torch.ops.groupnorm import fused_groupnorm_silu, fused_groupnorm_silu_ref
+from udifftext_tpu_torch.ops.groupnorm import (
+    fused_groupnorm_silu,
+    fused_groupnorm_silu_ref,
+    groupnorm_plan,
+)
 from udifftext_tpu_torch.ops.ln_gemm import (
     ln_gemm,
     ln_gemm3,
@@ -282,7 +287,8 @@ def test_flash_grads_match_plain_autograd(gen, dtype):
                .requires_grad_(True) for _ in range(3))
     do = torch.randn(2, 1024, 4, 64, generator=gen, device="cuda").to(dtype)
     before = flash_attention_bwd.launches
-    got = torch.autograd.grad(A.sdpa(q, k, v), (q, k, v), do)
+    # "flash": under "auto" fp32 takes the plain path (ops.attention.flash_dtype_ok)
+    got = torch.autograd.grad(A.sdpa(q, k, v, impl="flash"), (q, k, v), do)
     assert flash_attention_bwd.launches == before + 1
     want = torch.autograd.grad(flash_attention_ref(q, k, v)[0], (q, k, v), do)
     for g, r in zip(got, want):
@@ -518,6 +524,11 @@ def _cross_case(gen, b, n, c, l, dtype, grad=False):
     (2, 256, 1280, 12, torch.bfloat16), (2, 1024, 320, 64, torch.bfloat16),
     (2, 1024, 640, 2, torch.bfloat16), (2, 1024, 640, 12, torch.float32),
     (1, 64, 128, 64, torch.float32), (1, 64, 128, 2, torch.float32),
+    # route "mma" at the ds1/ds2 widths (5 and 10 heads) for every kind of L:
+    # the least, the UNet's 12, one key tile's 16, one past it, the most
+    *[(2, 1024, c_, l_, torch.bfloat16) for c_ in (320, 640) for l_ in (2, 12, 16, 17, 64)],
+    (32, 4096, 320, 12, torch.bfloat16),  # 128 rows a block
+    (2, 64, 1280, 64, torch.bfloat16), (1, 64, 128, 16, torch.bfloat16),
 ])
 def test_fused_cross_attention_matches_plain(gen, b, n, c, l, dtype):
     ins, heads = _cross_case(gen, b, n, c, l, dtype)
@@ -526,7 +537,24 @@ def test_fused_cross_attention_matches_plain(gen, b, n, c, l, dtype):
     out = fused_cross_attention(*ins, heads)
     torch.cuda.synchronize()
     assert fused_cross_attention.launches == before + 1
+    want = "fma" if dtype == torch.float32 else "wmma" if c == 1280 else "mma"
+    assert fused_cross_attention.last_route == want
+    assert fused_cross_attention.last_plan == cross_attention_plan(dtype, b, n, c, c)
     _check(out, fused_cross_attention_ref(*ins, heads))
+
+
+def test_fused_cross_attention_mma_when_the_max_binds(gen):
+    """Logits of ±100 and more: the softmax rests on the max subtraction."""
+    ins, heads = _cross_case(gen, 2, 1024, 320, 12, torch.bfloat16)
+    x, scale, bias, wq, k, v, wo, bo = ins
+    k = (k.float() * 40).bfloat16()
+    ins = (x, scale, bias, wq, k, v, wo, bo)
+    out = fused_cross_attention(*ins, heads)
+    torch.cuda.synchronize()
+    assert fused_cross_attention.last_route == "mma"
+    ref = fused_cross_attention_ref(*ins, heads)
+    assert torch.isfinite(out.float()).all()
+    _check(out, ref)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -644,13 +672,19 @@ def _gn_case(gen, shape, dtype, offset=0.0):
     ((2, 32, 32, 640), torch.float32, True, 1e-5),
     ((2, 1000, 64), torch.float32, False, 1e-6),
     ((1, 1, 4096), torch.float32, True, 1e-5),       # one row, the widest C
+    ((2, 4133, 320), torch.bfloat16, True, 1e-5),    # ragged: N not a multiple of a CTA's rows
+    ((2, 64, 64, 320), torch.float32, False, 1e-6),
+    ((1, 256, 256, 256), torch.float32, True, 1e-5),  # a (sample, group) no cluster holds
 ])
 def test_groupnorm_matches_plain(gen, shape, dtype, with_silu, eps):
     x, scale, bias = _gn_case(gen, shape, dtype)
     before = fused_groupnorm_silu.launches
     out = fused_groupnorm_silu(x, scale, bias, 32, eps, with_silu)
     torch.cuda.synchronize()
-    assert fused_groupnorm_silu.launches == before + 1
+    assert fused_groupnorm_silu.launches == before + 1  # a wrapper call, on either route
+    plan = groupnorm_plan(dtype, shape[0], x.numel() // (shape[0] * shape[-1]), shape[-1])
+    assert fused_groupnorm_silu.last_plan == plan
+    assert plan.route == ("two_pass" if shape == (1, 256, 256, 256) else "cluster")
     _check(out, fused_groupnorm_silu_ref(x, scale, bias, 32, eps, with_silu))
 
 
@@ -661,6 +695,7 @@ def test_groupnorm_other_group_counts_and_offset(gen):
                fused_groupnorm_silu_ref(x, scale, bias, groups))
     x, scale, bias = _gn_case(gen, (2, 64, 64, 320), torch.float32, offset=1000.0)
     got, ref = fused_groupnorm_silu(x, scale, bias), fused_groupnorm_silu_ref(x, scale, bias)
+    assert fused_groupnorm_silu.last_route == "cluster"
     assert float((got - ref).abs().max()) <= 1e-3
     # what E[x²] − mean² would make of the same data
     xg = x.reshape(2, -1, 32, 10)
@@ -670,6 +705,8 @@ def test_groupnorm_other_group_counts_and_offset(gen):
 
 def test_groupnorm_is_deterministic(gen):
     x, scale, bias = _gn_case(gen, (4, 64, 64, 320), torch.bfloat16)
+    assert torch.equal(fused_groupnorm_silu(x, scale, bias), fused_groupnorm_silu(x, scale, bias))
+    x, scale, bias = _gn_case(gen, (1, 256, 256, 256), torch.float32)  # route "two_pass"
     assert torch.equal(fused_groupnorm_silu(x, scale, bias), fused_groupnorm_silu(x, scale, bias))
 
 

@@ -166,6 +166,86 @@ def test_groupnorm_gate_and_chunking():
     assert GN.rows_per_chunk(16, 4096) == 128 and GN.rows_per_chunk(8, 4096) == 64
 
 
+@pytest.mark.parametrize("shape,dtype,want", [
+    # the ResBlock probe's shape: 4-group (80-byte) slices, 7 CTAs of 586 rows, four an SM
+    ((32, 4096, 320), torch.bfloat16, ("cluster", 4, 7, 586)),
+    # B=2: the narrowest 16-byte slice and clusters of 8 to fill the card
+    ((2, 4096, 320), torch.bfloat16, ("cluster", 4, 8, 512)),
+    ((2, 1024, 640), torch.bfloat16, ("cluster", 2, 8, 128)),
+    ((2, 256, 1280), torch.bfloat16, ("cluster", 1, 5, 52)),
+    ((2, 4096, 960), torch.bfloat16, ("cluster", 4, 8, 512)),      # the decoder's C/G = 30
+    ((2, 1024, 640), torch.float32, ("cluster", 1, 5, 205)),
+    ((3, 777, 64), torch.bfloat16, ("cluster", 4, 8, 98)),         # ragged: 7 CTAs of 98, one of 91
+    ((1, 1, 4096), torch.float32, ("cluster", 1, 1, 1)),           # one row: one CTA
+    ((1, 262144, 128), torch.float32, ("two_pass", 0, 0, 128)),    # the VAE decoder's last GroupNorm
+    ((1, 65536, 256), torch.float32, ("two_pass", 0, 0, 128)),
+])
+def test_groupnorm_plan_picks_route_slice_and_cluster(shape, dtype, want):
+    b, n, c = shape
+    plan = GN.groupnorm_plan(dtype, b, n, c)
+    assert (plan.route, plan.slice_groups, plan.cluster, plan.rows) == want
+    assert plan.launches == (1 if plan.route == "cluster" else 2)
+    if plan.route == "cluster":
+        esize = torch.empty((), dtype=dtype).element_size()
+        width = plan.slice_groups * c // 32
+        assert width * esize % 16 == 0 and width * esize <= GN.MAX_SLICE_BYTES
+        assert plan.rows * (plan.cluster - 1) < n <= plan.rows * plan.cluster
+        assert plan.smem_bytes == GN.cluster_smem_bytes(plan.rows, width, esize, plan.slice_groups)
+        assert plan.smem_bytes <= GN.SMEM_MAX
+
+
+def test_groupnorm_plan_refuses_nothing_the_gate_takes():
+    """Every shape `groupnorm_silu_supported` takes has a route; a cluster
+    plan always fits its limits, and "two_pass" is left only to a
+    (sample, group) that no 8 CTAs hold."""
+    rs = np.random.RandomState(3)
+    for _ in range(300):
+        dtype = (torch.float32, torch.bfloat16)[rs.randint(2)]
+        groups = int(rs.choice([1, 4, 8, 16, 32]))
+        c = groups * int(rs.choice([1, 2, 3, 4, 8, 10, 20, 30, 40]))
+        if c % 8 or c > GN.MAX_C:
+            continue
+        b, n = int(rs.randint(1, 40)), int(rs.choice([1, 7, 64, 777, 4096, 16384, 70000]))
+        assert GN.groupnorm_silu_supported(torch.zeros(b, 1, c, dtype=dtype), groups)
+        plan = GN.groupnorm_plan(dtype, b, n, c, groups)
+        esize = torch.empty((), dtype=dtype).element_size()
+        if plan.route == "cluster":
+            assert 1 <= plan.cluster <= GN.MAX_CLUSTER and groups % plan.slice_groups == 0
+            assert plan.rows * (plan.cluster - 1) < n <= plan.rows * plan.cluster
+            assert plan.smem_bytes <= GN.SMEM_MAX
+        else:
+            cg = c // groups
+            narrowest = min(s * cg for s in range(1, groups + 1)
+                            if groups % s == 0 and s * cg * esize % 16 == 0)
+            assert GN.cluster_smem_bytes(-(-n // 8), narrowest, esize, 1) > GN.SMEM_MAX
+
+
+@pytest.mark.parametrize("shape,dtype,parts,offset", [
+    ((2, 16, 16, 64), "float32", 4, 0.0),
+    ((2, 777, 64), "float32", 8, 0.0),        # ragged: the last run is shorter
+    ((2, 256, 960), "bfloat16", 7, 0.0),
+    ((2, 16, 16, 64), "float32", 5, 1000.0),  # runs merged about their own means
+])
+def test_groupnorm_cluster_order_matches_plain_and_groupnorm32(shape, dtype, parts, offset):
+    """The cluster route's partial statistics and rank-order merge, walked in
+    plain PyTorch, against the plain version and GroupNorm32."""
+    x, scale, bias = _gn_inputs(shape, seed=4, offset=offset)
+    args = (_to_torch(x, dtype), torch.from_numpy(scale), torch.from_numpy(bias))
+    got = GN.fused_groupnorm_silu_cluster_ref(*args, parts=parts)
+    plain = GN.fused_groupnorm_silu_ref(*args)
+    want = _to_numpy(_jax_groupnorm32(jnp.asarray(x, dtype), jnp.asarray(scale),
+                                      jnp.asarray(bias)))
+    if offset:
+        U.assert_close(got, want, 0.0, 1e-3, "cluster order under an offset")
+    elif dtype == "float32":
+        U.assert_close(got, plain.numpy(), 1e-5, 1e-5, "cluster order vs plain")
+        U.assert_close(got, want, 1e-3, 1e-4, "cluster order vs GroupNorm32")
+    else:
+        tol = 2**-7 * max(1.0, float(np.abs(want).max()))
+        U.assert_close(got, plain.float().numpy(), 0.0, tol, "cluster order vs plain")
+        U.assert_close(got, want, 0.0, tol, "cluster order vs GroupNorm32")
+
+
 def test_groupnorm_raises_when_a_gradient_is_asked():
     x, scale, bias = (torch.from_numpy(a) for a in _gn_inputs((1, 16, 64)))
     for leaf in (x, scale, bias):

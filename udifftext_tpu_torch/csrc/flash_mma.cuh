@@ -1,5 +1,6 @@
 // Building blocks of the tensor-core kernels (flash_attention.cu,
-// flash_attention_bwd.cu, the "mma" route of geglu.cu, flash_variants.cu) on
+// flash_attention_bwd.cu, the "mma" routes of geglu.cu and cross_attention.cu,
+// flash_variants.cu; groupnorm.cu takes its `cp.async` helpers) on
 // Hopper (sm_90a), for
 // bf16 tiles of 64 columns:
 //
@@ -14,6 +15,8 @@
 //   - `wgmma.mma_async` m64n64k16 with fp32 accumulation: A and B both from
 //     shared memory (`wgmma_ss`), or A from registers and B MN-major from
 //     shared memory (`wgmma_rs`), and 64×64×64 tile products built of four;
+//     for the one-kernel t_attn branch also A from registers and B K-major
+//     (`wgmma_rs_k`: q·kᵀ with q left in registers);
 //     for the flash-variant probe also both operands MN-major
 //     (`wgmma_ss_mn`) and m64n128k16 in either layout (`wgmma_ss_n128`);
 //   - the accumulator's register layout: within a warpgroup, warp w owns rows
@@ -186,6 +189,42 @@ __device__ __forceinline__ void tile_product_rs(float (&d)[32], const uint32_t (
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)  // 16 rows = 2048 bytes further down
     wgmma_rs(d, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3], db + 128 * kk, 1);
+}
+
+// d = A·Bᵀ (+ d if scale_d): A 64×16 from registers (the layout of
+// `wgmma_rs`), B 64×16 K-major (a 16-column slice of a swizzled tile whose
+// rows are N), the transpose immediate of B clear.
+__device__ __forceinline__ void wgmma_rs_k(float (&d)[32], uint32_t a0, uint32_t a1, uint32_t a2,
+                                           uint32_t a3, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(scale_d));
+}
+
+// d = A·Bᵀ over 64 columns: A from the fragments `a` (pack_a_fragments), B
+// the swizzled 64×64 tile at b read along its rows. Overwrites d.
+__device__ __forceinline__ void tile_product_rs_k(float (&d)[32], const uint32_t (&a)[16],
+                                                  uint32_t b) {
+  const uint64_t db = tile_descriptor(b);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)  // 16 columns = 32 bytes further along the rows
+    wgmma_rs_k(d, a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3], db + 2 * kk,
+               kk > 0 ? 1 : 0);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

@@ -17,11 +17,21 @@ Bound on an H100 at the ds1 width with 32 × 4096 rows (C = 320, L = 12,
 bf16): x read and out written once, 168 MB, 0.05 ms at 3.35 TB/s, against
 55.7 GFLOP, 0.056 ms at 989 TFLOP/s. The kernel keeps the normalized rows, q,
 the attention weights and the head outputs in shared memory and registers.
+
+Routes (`cross_attention_plan`, a pure function of dtype and shape): "mma"
+(`wgmma`, weights staged through a shared-memory ring, 64 or 128 rows a
+block) for bf16 with C % 64 == 0, C >= 128 and the block's tiles within
+shared memory (the ds1 and ds2 widths); "wmma" (the first-cut kernel) for the other
+bf16 widths, C = 1280 among them; "fma" for fp32. A CUDA tensor takes the
+route its shape names; none gives way to another or to the plain version.
+`fused_cross_attention.last_route` and `.last_plan` report the latest launch.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -31,11 +41,58 @@ from .ln_gemm import EPS, ln_ref_f32, recompute_grads
 _ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
              + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 # x, ln_scale, ln_bias, wq, k, v, wo, bo, out, B, N, C, inner, L, eps, scale, dtype, stream
+_MMA_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+                 + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+# x, ln_scale, ln_bias, wq, k, v, wo, bo, out, B, N, C, inner, L, rows, eps, scale, stream
 
 ROW_TILE = 64    # N % 64 == 0: a block's rows stay within one batch element
 HEAD_DIM = 64    # the kernel holds one 64-wide head slice in registers
 MAX_C = 1536     # two 32-row buffers of C bf16 values stay in shared memory
 MAX_L = 64
+# route "mma" (csrc/cross_attention.cu cross_attn_mma_kernel<RG>)
+TILE_BYTES = 64 * 64 * 2   # one swizzled 64×64 bf16 tile
+RING_BYTES = 4 * 2 * TILE_BYTES
+SMEM_MAX = 232448          # dynamic shared memory one block may opt in to (227 KB)
+SMS = 132                  # the H100's multiprocessors
+
+
+class CrossAttentionPlan(NamedTuple):
+    """The route of one call, the rows a block owns and its bytes of
+    dynamic shared memory (0 off the "mma" route)."""
+    route: str
+    rows: int
+    smem_bytes: int
+
+
+def mma_smem_bytes(row_groups: int, c: int, inner: int) -> int:
+    """Dynamic shared memory of the "mma" route (csrc/cross_attention.cu
+    `mma_smem_bytes`): 1 KB of alignment slack, the x rows and the attention
+    outputs of `row_groups` × 64 rows as 64×64 tiles, and a ring of four
+    stages of two tiles."""
+    return 1024 + TILE_BYTES * row_groups * (c // 64 + inner // 64) + RING_BYTES
+
+
+@functools.lru_cache(maxsize=None)
+def cross_attention_plan(dtype: torch.dtype, b: int, n: int, c: int, inner: int,
+                         sms: int = SMS) -> CrossAttentionPlan:
+    """The route of `fused_cross_attention` for x (b, n, c) of `dtype` and
+    `inner` = heads·64 on a card with `sms` multiprocessors (the shape must
+    pass `cross_attention_supported`).
+
+    "mma": bf16 with c % 64 == 0, c >= 128 (a warpgroup's two first x tiles
+    stage its fp32 output tile) and 64 rows' tiles within shared memory; 128
+    rows a block (two warpgroups sharing each staged weight tile) where those
+    fit, n % 128 == 0 and the grid of b·n/128 blocks still covers the card,
+    else 64. "wmma": the other bf16 widths, 64 rows a block up to a width of
+    384, 32 above. "fma": fp32, 16 rows."""
+    if dtype == torch.float32:
+        return CrossAttentionPlan("fma", 16, 0)
+    if c % 64 == 0 and c >= 128 and mma_smem_bytes(1, c, inner) <= SMEM_MAX:
+        if (mma_smem_bytes(2, c, inner) <= SMEM_MAX and n % 128 == 0
+                and b * n // 128 >= sms):
+            return CrossAttentionPlan("mma", 128, mma_smem_bytes(2, c, inner))
+        return CrossAttentionPlan("mma", 64, mma_smem_bytes(1, c, inner))
+    return CrossAttentionPlan("wmma", 64 if max(c, inner) <= 384 else 32, 0)
 
 
 def fused_cross_attention_ref(x, ln_scale, ln_bias, wq, k, v, wo, bo, heads: int,
@@ -103,14 +160,31 @@ def _launch(x, ln_scale, ln_bias, wq, k, v, wo, bo, heads: int) -> torch.Tensor:
         raise ValueError(f"{name}: all tensors must be contiguous")
     if any(t.data_ptr() % 16 for t in ts):
         raise ValueError(f"{name}: tensors must start at 16-byte aligned addresses")
+    plan = cross_attention_plan(x.dtype, b, n, c, inner, _sm_count(x.device))
     out = torch.empty_like(x)
-    fn = _build.kernel_function("udt_cross_attention", _ARGTYPES)
-    err = fn(x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), wq.data_ptr(), k.data_ptr(),
-             v.data_ptr(), wo.data_ptr(), bo.data_ptr(), out.data_ptr(), b, n, c, inner, l, EPS,
-             HEAD_DIM**-0.5, _build.DTYPE_CODES[x.dtype], _build.stream_handle(x))
-    _build.check(err, "udt_cross_attention")
+    ptrs = (x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), wq.data_ptr(), k.data_ptr(),
+            v.data_ptr(), wo.data_ptr(), bo.data_ptr(), out.data_ptr())
+    if plan.route == "mma":
+        err = _entry("udt_cross_attention_mma")(*ptrs, b, n, c, inner, l, plan.rows, EPS,
+                                                 HEAD_DIM**-0.5, _build.stream_handle(x))
+    else:
+        err = _entry("udt_cross_attention")(*ptrs, b, n, c, inner, l, EPS, HEAD_DIM**-0.5,
+                                             _build.DTYPE_CODES[x.dtype], _build.stream_handle(x))
+    _build.check(err, f"fused_cross_attention (route {plan.route})")
     fused_cross_attention.launches += 1
+    fused_cross_attention.last_route = plan.route
+    fused_cross_attention.last_plan = plan
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(name: str):
+    return _build.kernel_function(name, _MMA_ARGTYPES if name.endswith("mma") else _ARGTYPES)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 class _FusedCrossAttention(torch.autograd.Function):
@@ -142,3 +216,6 @@ def fused_cross_attention(x, ln_scale, ln_bias, wq, k, v, wo, bo, heads: int) ->
 
 
 fused_cross_attention.launches = 0
+# the route and plan of the latest launch, for the tests and the smoke run
+fused_cross_attention.last_route = None
+fused_cross_attention.last_plan = None
