@@ -10,9 +10,11 @@ each printed on its own line:
 2. the kernel build from udifftext_tpu_torch/csrc, with its time and the
    compiler's register and spill report of every kernel; it fails if a
    tensor-core (`wgmma`) flash, GEGLU, flash-variant (each of the twelve
-   instantiations of flash_variant_mma_kernel<BQ, BK, TR, CLAMP>) or t_attn
-   kernel (cross_attn_mma_kernel<RG>, 64 and 128 rows a block) spills or had
-   its wgmma pipeline serialized;
+   instantiations of flash_variant_mma_kernel<BQ, BK, TR, CLAMP>), t_attn
+   kernel (cross_attn_mma_kernel<RG>, 64 and 128 rows a block) or
+   LN→projection kernel (the four ln_gemm_mma_kernel<N, RG>: 160- or
+   64-column tiles, 64 or 128 rows a block) spills or had its wgmma
+   pipeline serialized;
 3. each forward kernel against its plain PyTorch version on the same CUDA
    tensors, at the main path's shapes: max error against the stated
    tolerance and both times (CUDA events, median of repeated runs); each
@@ -30,7 +32,17 @@ each printed on its own line:
    geglu_ff_ln) against their plain versions on seeded random tensors at the
    ds1 and ds2 widths, B=2 and B=32, bf16, and one fp32 case each (ln_gemm
    also at (2, 128, 1280) → 3840), and the gradients of each autograd
-   Function against the plain version's autograd; fused_cross_attention
+   Function against the plain version's autograd; ln_gemm and ln_gemm3 name
+   their route ("mma": `wgmma` with weights through a TMA ring fed by a
+   producer warp, bf16 with C % 64 == 0, which every bf16 case at C = 320,
+   640 and 1280 must take; "wmma"; "fma": fp32, which the fp32 case must
+   take) and plan (rows a block, tile width, column tiles a block of all,
+   blocks, ring stages and how often the busiest block wraps its ring), their
+   time when 20 calls are queued back to back, the unfused composition the
+   block runs with fuse_glue="off" (LayerNormF32, then one wide or three
+   separate F.linear) and its cuBLAS products alone; two more cases hold
+   them with F = 336 (ragged last tiles, column groups across the q/k
+   boundary) and with a ring wrapped 10 times; fused_cross_attention
    names its route ("mma": `wgmma`, bf16 at the ds1/ds2 widths; "wmma";
    "fma": fp32) and rows a block, its time when 20 calls are queued back to
    back, and beside it the unfused composition the block runs with
@@ -108,7 +120,7 @@ UNet runs, the glue probe for the four that only the fused block runs, the
 ResBlock probe for the fused GroupNorm, the variants probe for v1-v4),
 `launches_by_path` holds every path's count, and the flash, GEGLU,
 t_attn, GroupNorm and variant kernels carry `kernel_route`, the route of
-their recorded case. The last line is
+their recorded case (ln_gemm and ln_gemm3 too). The last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -388,7 +400,15 @@ def main() -> None:
         fused_groupnorm_silu_ref,
         groupnorm_plan,
     )
-    from udifftext_tpu_torch.ops.ln_gemm import ln_gemm, ln_gemm3, ln_gemm3_ref, ln_gemm_ref
+    from udifftext_tpu_torch.ops.ln_gemm import (
+        MMA_WIDTHS,
+        ln_gemm,
+        ln_gemm3,
+        ln_gemm3_ref,
+        ln_gemm_block_columns,
+        ln_gemm_plan,
+        ln_gemm_ref,
+    )
     from udifftext_tpu_torch.predict import Predictor
     from udifftext_tpu_torch.scripts import flash_variants as variants_probe
     from udifftext_tpu_torch.scripts import glue_fusion_probe, resblock_probe
@@ -421,7 +441,7 @@ def main() -> None:
     for line in _build.library_path().with_suffix(".log").read_text().splitlines():
         m = re.search(r"entry function '\w*?((?:flash_fwd_mma|flash_bwd_dq_mma|flash_bwd_dkdv_mma"
                       r"|flash_fwd|flash_bwd_dq|flash_bwd_dkdv|geglu_mma|geglu_wmma"
-                      r"|geglu_simt|geglu_reduce|ln_gemm|cross_attn_mma|cross_attn|gn_stats"
+                      r"|geglu_simt|geglu_reduce|ln_gemm_mma|ln_gemm|cross_attn_mma|cross_attn|gn_stats"
                       r"|gn_apply|gn_cluster|flash_variant_mma|flash_variant_fma)_kernel)(\w*)'",
                       line)
         if m:
@@ -444,11 +464,13 @@ def main() -> None:
                 f"ELb{int(clamp is not None)}EE")
 
     # three flash kernels, the GEGLU kernel's instantiations <NT, G, RG>, the
-    # flash variants' <BQ, BK, TR, CLAMP> (v1 and v3 share theirs) and the
-    # t_attn branch's <RG> (64 and 128 rows a block)
+    # flash variants' <BQ, BK, TR, CLAMP> (v1 and v3 share theirs), the
+    # t_attn branch's <RG> (64 and 128 rows a block) and LN→projection's
+    # <N, RG> (160- or 64-column tiles, 64 or 128 rows a block)
     variant_stems = {variant_kernel(torch.bfloat16, bq, bk, tr, cl)
                      for bq, bk in TILE_MENU[torch.bfloat16] for tr, cl in VARIANTS.values()}
     cross_stems = {f"cross_attn_mma_kernelILi{rg}EE" for rg in (1, 2)}
+    cross_stems |= {f"ln_gemm_mma_kernelILi{n_}ELi{rg}EE" for n_ in MMA_WIDTHS for rg in (1, 2)}
     n_mma = 3 + len(GEGLU_MMA_SHAPES) + len(variant_stems) + len(cross_stems)
     names = " ".join(mma_kernels)
     if len(mma_kernels) != n_mma or not all(
@@ -710,6 +732,74 @@ def main() -> None:
             fail(f"fused_cross_attention {label} was served by {plan}, not {want}")
         return ca_in
 
+    def ln_products_ms(x, ln_s, ln_b, ws):
+        """The unfused composition's cuBLAS products alone, on its normalized
+        rows and preallocated outputs of the working dtype."""
+        c = x.shape[-1]
+        xn = F.layer_norm(x.float(), (c,), ln_s, ln_b, 1e-5).to(x.dtype).reshape(-1, c)
+        outs = [torch.empty((xn.shape[0], w.shape[0]), dtype=x.dtype, device=dev) for w in ws]
+
+        def run():
+            for w, o in zip(ws, outs):
+                torch.matmul(xn, w.t(), out=o)
+        return time_ms(run)
+
+    def check_ln_gemm(label, x, ln_s, ln_b, ws, min_wraps=0):
+        """ln_gemm (one weight, one wide output) or ln_gemm3 (three weights,
+        three compact outputs) against its plain version, with its route and
+        plan named and checked against `ln_gemm_plan` ("mma" for bf16 at
+        C = 320, 640, 1280; "fma" for fp32); timed single and back to back
+        beside the unfused composition the block runs with fuse_glue="off"
+        (LayerNormF32, then F.linear: one wide or three separate) and that
+        composition's cuBLAS products alone. `min_wraps`: the times the
+        busiest block's ring must wrap."""
+        wide = len(ws) == 1
+        name, fn, ref_fn = (("ln_gemm", ln_gemm, ln_gemm_ref) if wide
+                            else ("ln_gemm3", ln_gemm3, ln_gemm3_ref))
+        dtype, c, f = x.dtype, x.shape[-1], ws[0].shape[0]
+        m = x.numel() // c
+        outs, refs = fn(x, ln_s, ln_b, *ws), ref_fn(x, ln_s, ln_b, *ws)
+        outs, refs = ((outs,), (refs,)) if wide else (outs, refs)
+        plan = fn.last_plan
+        torch.cuda.synchronize()
+        err = max(max_err(o_, r_) for o_, r_ in zip(outs, refs))
+        tol = min(tol_of(r_) for r_ in refs)
+        ms = time_ms(lambda: fn(x, ln_s, ln_b, *ws))
+        queued_ms = back_to_back_ms(lambda: fn(x, ln_s, ln_b, *ws))
+        plain_ms = time_ms(lambda: ref_fn(x, ln_s, ln_b, *ws), reps=5)
+
+        def composition():
+            xn = F.layer_norm(x.float(), (c,), ln_s, ln_b, 1e-5).to(dtype)
+            return [F.linear(xn, w) for w in ws]
+        comp_ms, gemm_ms = time_ms(composition), ln_products_ms(x, ln_s, ln_b, ws)
+        flops = 2 * m * c * len(ws) * f
+        note = record(records, name, label, err, ms, plain_ms,
+                      bound_ms(flops, nbytes(x, ln_s, ln_b, *ws, *outs), dtype))
+        records[name].setdefault("kernel_route", plan.route)
+        wraps = plan.steps / plan.stages if plan.stages else 0.0
+        how = f"route {plan.route}, {plan.rows} rows a block"
+        if plan.route == "mma":
+            spans = {len({wi for wi, _, _ in ln_gemm_block_columns(plan, f, blk)})
+                     for blk in range(plan.groups)}
+            how += (f", {plan.n}-column tiles, {plan.group_tiles} of {plan.tiles} a block "
+                    f"({plan.groups} column groups, {max(spans)} weight(s) in the widest), "
+                    f"{plan.blocks} blocks, a {plan.stages}-stage ring wrapped {wraps:.1f} times "
+                    f"by the busiest block, {plan.smem_bytes} bytes of shared memory")
+        log(f"[{name}] {label} ({'' if wide else '3x '}{c}->{f}): {how}; max_abs_err {err:.3e} "
+            f"(tol {tol:.3e}); kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s; "
+            f"{queued_ms:.4f} ms each when 20 are queued back to back), plain {plain_ms:.3f} ms, "
+            f"the unfused composition {comp_ms:.3f} ms, its cuBLAS products alone "
+            f"{gemm_ms:.3f} ms, {note}")
+        if not (err <= tol and all(o_.is_contiguous() for o_ in outs)):
+            fail(f"{name} {label} disagrees with its plain version")
+        want = ln_gemm_plan(dtype, m, c, f, len(ws))
+        want_route = "fma" if dtype == torch.float32 else "mma" if c in (320, 640, 1280) else None
+        if plan != want or (want_route is not None and plan.route != want_route):
+            fail(f"{name} {label} was served by {plan}, not {want} on route {want_route}")
+        if wraps < min_wraps:
+            fail(f"{name} {label}: the ring wrapped {wraps} times, not {min_wraps}")
+        del outs, refs
+
     glue_cases = [  # (label, B, N, C, dtype); the probe's shapes first
         ("ds1 B=32", 32, 4096, 320, torch.bfloat16), ("ds2 B=32", 32, 1024, 640, torch.bfloat16),
         ("ds1 B=2", 2, 4096, 320, torch.bfloat16), ("ds2 B=2", 2, 1024, 640, torch.bfloat16),
@@ -723,37 +813,10 @@ def main() -> None:
         ws = [randn(c, c, dtype=dtype, scale=c**-0.5) for _ in range(3)]
         w3 = torch.cat(ws, dim=0)
 
-        out = ln_gemm(x, ln_s, ln_b, w3)
-        ref = ln_gemm_ref(x, ln_s, ln_b, w3)
-        torch.cuda.synchronize()
-        err, tol = max_err(out, ref), tol_of(ref)
-        ms = time_ms(lambda: ln_gemm(x, ln_s, ln_b, w3))
-        plain_ms = time_ms(lambda: ln_gemm_ref(x, ln_s, ln_b, w3), reps=5)
-        flops = 2 * m * c * 3 * c
-        note = record(records, "ln_gemm", label, err, ms, plain_ms,
-                      bound_ms(flops, nbytes(x, ln_s, ln_b, w3, out), dtype))
-        log(f"[ln_gemm] {label} ({c}->{3 * c}): max_abs_err {err:.3e} (tol {tol:.3e}); kernel "
-            f"{ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, {note}")
-        if not err <= tol:
-            fail(f"ln_gemm {label} disagrees with its plain version")
-        del out, ref
+        check_ln_gemm(label, x, ln_s, ln_b, [w3])
         if c == 1280:  # the single-output kernel's own test shape; the block has no ds4 path
             continue
-
-        outs = ln_gemm3(x, ln_s, ln_b, *ws)
-        refs = ln_gemm3_ref(x, ln_s, ln_b, *ws)
-        torch.cuda.synchronize()
-        err = max(max_err(o_, r_) for o_, r_ in zip(outs, refs))
-        tol = min(tol_of(r_) for r_ in refs)
-        ms = time_ms(lambda: ln_gemm3(x, ln_s, ln_b, *ws))
-        plain_ms = time_ms(lambda: ln_gemm3_ref(x, ln_s, ln_b, *ws), reps=5)
-        note = record(records, "ln_gemm3", label, err, ms, plain_ms,
-                      bound_ms(flops, nbytes(x, ln_s, ln_b, *ws, *outs), dtype))
-        log(f"[ln_gemm3] {label} (3x {c}->{c}): max_abs_err {err:.3e} (tol {tol:.3e}); kernel "
-            f"{ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, {note}")
-        if not (err <= tol and all(o_.is_contiguous() for o_ in outs)):
-            fail(f"ln_gemm3 {label} disagrees with its plain version")
-        del outs, refs
+        check_ln_gemm(label, x, ln_s, ln_b, ws)
 
         ca_in = check_cross_attention(label, x, ln_s, ln_b, ws[0], ws[1], 12)
 
@@ -792,6 +855,17 @@ def main() -> None:
             del g1, g3
         del x, ws, w3, ca_in, w1, b1, w2, b2, ff_in
         torch.cuda.empty_cache()
+
+    # ln_gemm's edges: weights of F = 336 rows (ragged last 64-column tiles,
+    # column groups across the q/k boundary), and a ring wrapped >= 10 times
+    for label, b, n, c, f, n_w, wraps in (("ragged F=336", 2, 4096, 320, 336, 3, 0),
+                                          ("ring C=1280", 2, 1024, 1280, 1280, 1, 10)):
+        x = randn(b, n, c)
+        ln_s, ln_b = ln_params(c)
+        check_ln_gemm(label, x, ln_s, ln_b, [randn(f, c, scale=c**-0.5) for _ in range(n_w)],
+                      min_wraps=wraps)
+        del x
+    torch.cuda.empty_cache()
 
     # the t_attn kernel's edges: a full 64-token context, and logits large
     # enough (|s| past 88, where exp overflows fp32) that the softmax rests

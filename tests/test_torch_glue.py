@@ -28,7 +28,7 @@ from udifftext_tpu_torch.models.layers import cast_weights
 from udifftext_tpu_torch.ops import cross_attention as PX
 from udifftext_tpu_torch.ops import geglu as PG
 from udifftext_tpu_torch.ops import ln_gemm as PL
-from udifftext_tpu_torch.scripts import glue_fusion_probe
+from udifftext_tpu_torch.scripts import glue_fusion_probe, ln_gemm_probe
 from udifftext_tpu_torch.utils.convert import unet_from_jax
 
 RTOL, ATOL = 1e-5, 1e-5
@@ -278,6 +278,101 @@ def test_cross_attention_plan_refuses_nothing_the_gate_takes():
                                           else "wmma")
                     if plan.route == "mma":
                         assert n % plan.rows == 0 and plan.smem_bytes <= PX.SMEM_MAX
+
+
+# The shapes `ln_gemm` / `ln_gemm3` run at (rows, C, F, n_w): the glue probe
+# (ds1 / ds2 at B=32), the demo's CFG batch (B=2), the single-output test
+# shape (2, 128, 1280) -> 3840, a ragged F, and a ring wrapped 10 times.
+LN_PLAN_SHAPES = [
+    (131072, 320, 320, 3), (131072, 320, 960, 1), (32768, 640, 640, 3), (32768, 640, 1920, 1),
+    (8192, 320, 320, 3), (8192, 320, 960, 1), (2048, 640, 640, 3), (2048, 640, 1920, 1),
+    (256, 1280, 1280, 3), (256, 1280, 3840, 1), (512, 1280, 1280, 3), (8192, 320, 336, 3),
+    (2048, 1280, 1280, 1), (64, 64, 48, 1), (192, 1536, 16, 3),
+]
+LN_B2_SHAPES = [(8192, 320, 320, 3), (8192, 320, 960, 1), (2048, 640, 640, 3),
+                (2048, 640, 1920, 1), (256, 1280, 3840, 1), (256, 1280, 1280, 3)]
+
+
+@pytest.mark.parametrize("dtype,m,c,f,n_w,want", [
+    # (route, rows a block, tile width, column tiles a block, blocks, stages)
+    (torch.bfloat16, 131072, 320, 320, 3, ("mma", 128, 160, 6, 1024, 4)),  # ds1 B=32: LN once a row
+    (torch.bfloat16, 131072, 320, 960, 1, ("mma", 128, 160, 6, 1024, 4)),  # ln_gemm: the same tiles
+    (torch.bfloat16, 32768, 640, 640, 3, ("mma", 64, 160, 12, 512, 4)),    # 128 rows of C=640 do not fit
+    (torch.bfloat16, 8192, 320, 320, 3, ("mma", 128, 160, 2, 192, 4)),     # B=2: column groups fill the card
+    (torch.bfloat16, 2048, 640, 640, 3, ("mma", 64, 160, 2, 192, 4)),
+    (torch.bfloat16, 256, 1280, 3840, 1, ("mma", 64, 64, 1, 240, 4)),      # 160-wide tiles: 96 blocks only
+    (torch.bfloat16, 2048, 1280, 1280, 1, ("mma", 64, 160, 1, 256, 2)),    # C=1280: a two-stage ring
+    (torch.bfloat16, 8192, 320, 336, 3, ("mma", 128, 64, 8, 192, 4)),      # F % 160 != 0: 64-wide, ragged
+    (torch.bfloat16, 2048, 96, 96, 3, ("wmma", 64, 0, 18, 32, 0)),         # C % 64 != 0
+    (torch.float32, 2048, 640, 640, 3, ("fma", 16, 0, 120, 128, 0)),
+])
+def test_ln_gemm_plan_routes(dtype, m, c, f, n_w, want):
+    plan = PL.ln_gemm_plan(dtype, m, c, f, n_w)
+    assert (plan.route, plan.rows, plan.n, plan.group_tiles, plan.blocks, plan.stages) == want
+    if plan.route == "mma":
+        assert plan.smem_bytes == PL.mma_smem_bytes(plan.rows // 64, c, plan.n, plan.stages)
+        assert plan.steps == plan.group_tiles * c // 64
+    else:
+        assert plan.smem_bytes == 0 and plan.groups == 1
+
+
+@pytest.mark.parametrize("m,c,f,n_w", LN_PLAN_SHAPES)
+def test_ln_gemm_plan_fits_shared_memory_and_covers_the_card(m, c, f, n_w):
+    """Every bf16 plan at C % 64 == 0 is on "mma" within 227 KB, with a ring
+    of 2-4 stages, 64 rows a block at C = 1280, and a grid of at least 132
+    blocks wherever row tiles × column tiles allow one (the B=2 shapes and
+    (2, 128, 1280) among them)."""
+    plan = PL.ln_gemm_plan(torch.bfloat16, m, c, f, n_w)
+    assert plan.route == "mma" and plan.n in PL.MMA_WIDTHS
+    assert plan.smem_bytes <= PL.SMEM_MAX and 2 <= plan.stages <= PL.MAX_STAGES
+    assert m % plan.rows == 0 and plan.blocks == m // plan.rows * plan.groups
+    assert plan.groups == -(-plan.tiles // plan.group_tiles)
+    if c == 1280:
+        assert plan.rows == 64
+    if (m, c, f, n_w) in LN_B2_SHAPES:
+        assert plan.blocks >= PL.SMS
+    most = max(m // rows * n_w * -(-f // n) for rows in (64, 128) for n in PL.MMA_WIDTHS
+               if m % rows == 0)
+    assert plan.blocks >= min(PL.SMS, most)
+
+
+@pytest.mark.parametrize("m,c,f,n_w", LN_PLAN_SHAPES)
+def test_ln_gemm_plan_block_columns_cover_every_output_column_once(m, c, f, n_w):
+    """The block → (weight, column range) map of the "mma" route (a mirror of
+    the kernel's) writes every column of every output once, in tiles that
+    never straddle two weights; the blocks of one row tile are adjacent."""
+    plan = PL.ln_gemm_plan(torch.bfloat16, m, c, f, n_w)
+    seen = np.zeros((n_w, f), np.int64)
+    for block in range(plan.groups):  # the column groups of row tile 0; every row tile repeats them
+        spans = PL.ln_gemm_block_columns(plan, f, block)
+        assert 1 <= len(spans) <= plan.group_tiles
+        for wi, c0, c1 in spans:
+            assert 0 <= wi < n_w and 0 <= c0 < c1 <= f and c1 - c0 <= plan.n
+            seen[wi, c0:c1] += 1
+    assert (seen == 1).all()
+    assert PL.ln_gemm_block_columns(plan, f, plan.groups) == PL.ln_gemm_block_columns(plan, f, 0)
+
+
+def test_ln_gemm_plan_refuses_nothing_the_gate_takes():
+    """Every bf16 width C % 64 == 0 up to the gate's 1536 has an "mma" plan
+    within shared memory at any row count the gate takes; the other widths go
+    to "wmma"."""
+    for c in range(16, PL.MAX_C + 1, 16):
+        for m in (64, 128, 4096):
+            for f, n_w in ((16, 3), (c, 3), (3 * c, 1), (336, 1)):
+                plan = PL.ln_gemm_plan(torch.bfloat16, m, c, f, n_w)
+                assert plan.route == ("mma" if c % 64 == 0 else "wmma")
+                if plan.route == "mma":
+                    assert plan.smem_bytes <= PL.SMEM_MAX and plan.stages >= 2
+
+
+@pytest.mark.parametrize("variant", sorted(ln_gemm_probe.VARIANTS))
+def test_ln_gemm_probe_variants_match_the_kernel_source(variant):
+    """Every edit of the card probe's variants (scripts/ln_gemm_probe.py)
+    finds its text once in csrc/ln_gemm.cu, so the probe builds what it says."""
+    src = (PL._build.CSRC / "ln_gemm.cu").read_text()
+    got = ln_gemm_probe.variant_source(variant)
+    assert (got == src + ln_gemm_probe._ENCODE_BENCH) if variant == "as is" else got != src
 
 
 # -- (c)-(g) the modules ------------------------------------------------------

@@ -68,6 +68,7 @@ from udifftext_tpu_torch.ops.ln_gemm import (
     ln_gemm3,
     ln_gemm3_ref,
     ln_gemm3_supported,
+    ln_gemm_plan,
     ln_gemm_ref,
 )
 
@@ -505,6 +506,53 @@ def test_ln_gemm_rejects_what_it_does_not_take(gen):
         ln_gemm(x, scale.cpu(), bias, ws[0])
     with pytest.raises(TypeError):
         ln_gemm(x.half(), scale, bias, ws[0].half())
+
+
+# route "mma" (wgmma, weights through a TMA ring): the glue probe's shapes,
+# the demo's CFG batch, (2, 128, 1280) -> 3840, F = 336 (ragged last tiles,
+# column groups across the q/k boundary) and a ring wrapped 10 times
+LN_MMA_SHAPES = [
+    (32, 4096, 320, 320), (32, 1024, 640, 640), (2, 4096, 320, 320), (2, 1024, 640, 640),
+    (2, 128, 1280, 1280), (2, 4096, 320, 336), (2, 1024, 1280, 1280),
+]
+
+
+@pytest.mark.parametrize("b,n,c,f", LN_MMA_SHAPES)
+def test_ln_gemm_mma_matches_plain(gen, b, n, c, f):
+    """Both wrappers on route "mma" with the plan `ln_gemm_plan` names,
+    against the plain versions (two bf16 ulps of the largest value: one
+    rounding each side); ln_gemm of the three weights stacked gives the
+    three ln_gemm3 outputs side by side, bit for bit."""
+    x, scale, bias, _ = _ln_case(gen, b, n, c, torch.bfloat16)
+    ws = [(torch.randn(f, c, generator=gen, device="cuda") * c**-0.5).bfloat16() for _ in range(3)]
+    w3 = torch.cat(ws, dim=0)
+    q, k, v = ln_gemm3(x, scale, bias, *ws)
+    out = ln_gemm(x, scale, bias, w3)
+    torch.cuda.synchronize()
+    for fn, f_, n_w in ((ln_gemm3, f, 3), (ln_gemm, 3 * f, 1)):
+        assert fn.last_route == "mma"
+        assert fn.last_plan == ln_gemm_plan(torch.bfloat16, b * n, c, f_, n_w)
+    for got, ref in zip((q, k, v), ln_gemm3_ref(x, scale, bias, *ws)):
+        assert got.is_contiguous()
+        _check(got, ref)
+    _check(out, ln_gemm_ref(x, scale, bias, w3))
+    assert torch.equal(out, torch.cat([q, k, v], dim=-1))
+    if (b, n, c) == (2, 1024, 1280):
+        plan = ln_gemm.last_plan
+        assert plan.steps >= 10 * plan.stages  # the busiest block wraps its ring 10 times
+
+
+def test_ln_gemm_mma_grads_match_plain_autograd(gen):
+    x, scale, bias, ws = _ln_case(gen, 2, 1024, 640, torch.bfloat16, grad=True)
+    ins = (x, scale, bias, *ws)
+    dos = [torch.randn(2, 1024, 640, generator=gen, device="cuda").bfloat16() for _ in range(3)]
+    _grads_close(torch.autograd.grad(ln_gemm3(*ins), ins, dos),
+                 torch.autograd.grad(ln_gemm3_ref(*ins), ins, dos), torch.bfloat16)
+    assert ln_gemm3.last_route == "mma"
+    ins = (x, scale, bias, ws[0])
+    _grads_close(torch.autograd.grad(ln_gemm(*ins), ins, dos[0]),
+                 torch.autograd.grad(ln_gemm_ref(*ins), ins, dos[0]), torch.bfloat16)
+    assert ln_gemm.last_route == "mma"
 
 
 def _cross_case(gen, b, n, c, l, dtype, grad=False):

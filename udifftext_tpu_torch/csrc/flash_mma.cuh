@@ -1,7 +1,7 @@
 // Building blocks of the tensor-core kernels (flash_attention.cu,
-// flash_attention_bwd.cu, the "mma" routes of geglu.cu and cross_attention.cu,
-// flash_variants.cu; groupnorm.cu takes its `cp.async` helpers) on
-// Hopper (sm_90a), for
+// flash_attention_bwd.cu, flash_variants.cu, the "mma" routes of geglu.cu,
+// cross_attention.cu and ln_gemm.cu; groupnorm.cu takes its `cp.async`
+// helpers) on Hopper (sm_90a), for
 // bf16 tiles of 64 columns:
 //
 //   - tiles in shared memory: rows of 64 bf16 = 128 bytes, the 16-byte chunk
@@ -19,6 +19,8 @@
 //     (`wgmma_rs_k`: q·kᵀ with q left in registers);
 //     for the flash-variant probe also both operands MN-major
 //     (`wgmma_ss_mn`) and m64n128k16 in either layout (`wgmma_ss_n128`);
+//     for the LayerNorm→projection kernel (ln_gemm.cu) m64n160k16 with both
+//     operands K-major (`wgmma_ss_n160`);
 //   - the accumulator's register layout: within a warpgroup, warp w owns rows
 //     16w .. 16w+15; a thread holds rows r = lane/4 and r + 8 and, for each
 //     j < 8, columns 8j + 2·(lane mod 4) + {0, 1}: d[4j], d[4j+1] in row r,
@@ -116,9 +118,10 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 // Keeps the compiler from moving uses of an accumulator across this point.
-__device__ __forceinline__ void fence_accumulator(float (&d)[32]) {
+template <int R>
+__device__ __forceinline__ void fence_accumulator(float (&d)[R]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (64×64 fp32, a warpgroup's) = A·Bᵀ (+ d if scale_d): A 64×16 and B 64×16,
@@ -363,6 +366,49 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, u
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS));
+}
+
+// ---- the wide form of ln_gemm.cu's route "mma" ----
+
+// m64n160k16: d (64×160 fp32, 80 registers a thread; columns 8j + 2·(lane
+// mod 4) + {0, 1} for j < 20, in the layout above) = A·Bᵀ (+ d if scale_d):
+// A 64×16 and B 160×16, both K-major slices of swizzled tiles (B's 160 rows
+// lie 128 bytes apart, eight of them one 1024-byte swizzle period, which
+// `tile_descriptor`'s stride byte offset already says).
+__device__ __forceinline__ void wgmma_ss_n160(float (&d)[80], uint64_t desc_a, uint64_t desc_b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %82, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79}, "
+      "%80, %81, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
 }  // namespace mma
