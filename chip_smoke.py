@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 Needs one NVIDIA H100 (sm_90a), nvcc, and the repository checkout; imports
-torch, numpy and the port only (no JAX, PyYAML, Pillow or OpenCV). Phases,
-each printed on its own line:
+torch, numpy and the port only (no JAX, PyYAML, Pillow, OpenCV or
+safetensors). Phases, each printed on its own line:
 
 1. the card's name and power limit, as nvidia-smi prints them;
 2. the kernel build from udifftext_tpu_torch/csrc, with its time and the
@@ -74,6 +74,14 @@ each printed on its own line:
    flash/GEGLU call of the path; then one more sample under torch.profiler
    for the device time by kernel group (`[profile]`; likewise one optimizer
    step after phase 6 and an AAE run cut to 5 steps after phase 7);
+5c. a checkpoint round trip at full width: phase 5's seeded engine saved
+   under the reference prefixes as a .ckpt, and its VAE alone as a
+   .safetensors file written here byte by byte; a freshly built engine
+   (whose 110 zero-initialized UNet parameters must be zero) loads the VAE
+   file as the graph's component checkpoint and the .ckpt as a run
+   checkpoint (udifftext_tpu_torch.loading): no missing, unexpected or
+   mismatched key, every parameter bit-equal; file sizes, seconds to save
+   and to load, peak host RSS;
 5b. the implementation switch: the engine built again with attn_impl="plain"
    on the same seeded weights: one UNet eval at the demo's shapes (B=2,
    bf16) under "auto" and under "plain", the kernel counters moving only in
@@ -102,7 +110,20 @@ each printed on its own line:
    GroupNorm on route "cluster" (one device launch a call);
 10. the flash-variants probe (udifftext_tpu_torch.scripts.flash_variants)
    through its entry function at B=32, H=5, N=4096, every label printed
-   with ms and TFLOP/s, the library line included.
+   with ms and TFLOP/s, the library line included;
+11. serving: udifftext_tpu_torch.scripts.serve_bench's entry function at
+   full width with the demo's sampler (50 steps, CFG 4.0, 10 candidates in
+   the batched search), buckets (1, 8), pipeline depth 2, on 512² uint8
+   requests: a warmup group per bucket, 2 saturated groups of 8, 2 single
+   requests. It prints samples/s, each single request's latency (two
+   values; `serve_bench` alone with more requests gives percentiles), the
+   mean batch size, peak device memory and how much of a later group's
+   launch overlapped the group ahead of it; it checks uint8 outputs of the
+   right shape that are not constant, every row's replay coordinates, one
+   group replayed bit for bit from them, 520 flash and 780 GEGLU launches a group (counted on the
+   dispatcher thread), a UNet eval at bucket 8 with kernels against
+   attn_impl="plain", and, on a depth-2 service, a request cancelled while
+   queued and a shutdown with the pipeline full.
 
 Beside every kernel's time stand its plain version's, its bound (the least
 time the card could take: the larger of bytes moved once over 3.35 TB/s and
@@ -111,8 +132,9 @@ PyTorch call computes the same function (scaled_dot_product_attention;
 group_norm then silu), that call's time on the same inputs; the port itself
 never calls it.
 
-Each path (demo, AAE, training, glue probe, ResBlock probe, variants probe)
-runs with the launch counts set to 0 just before it and read just after.
+Each path (demo, AAE, training, glue probe, ResBlock probe, variants probe,
+serving) runs with the launch counts set to 0 just before it and read just
+after.
 Any failure exits non-zero. The
 second-to-last line is the kernels' JSON record: each kernel's `launches`
 counts the path named by its `launches_path` (training for the kernels the
@@ -126,8 +148,11 @@ their recorded case (ln_gemm and ln_gemm3 too). The last line is
 
 from __future__ import annotations
 
+import copy
 import json
+import os
 import re
+import resource
 import statistics
 import subprocess
 import sys
@@ -301,6 +326,43 @@ def profile_groups(label: str, fn, path_s: float) -> None:
         f"ms (launches): {parts}")
 
 
+# the reference checkpoint's prefix of each engine component
+CKPT_PREFIXES = (("unet", "model.diffusion_model."), ("vae", "first_stage_model."),
+                 ("label_encoder", "conditioner.embedders.0."))
+# the UNet parameters the reference zero-initializes (zero_module): t_attn's
+# output projection and proj_out of the 16 transformers, the last conv of the
+# 22 ResBlocks, and the UNet's last conv, weights and biases: 110 at full width
+ZERO_INIT = re.compile(r"(\.t_attn\.to_out\.0|\.proj_out|\.out_layers\.3|^out\.2)\.(weight|bias)$")
+ZERO_INIT_KEYS = 110
+SAFETENSORS_DTYPES = {"torch.float32": "F32", "torch.bfloat16": "BF16", "torch.float16": "F16"}
+
+
+def write_safetensors(path: str, tensors: dict) -> None:
+    """A .safetensors file written directly: 8-byte little-endian header
+    length, the JSON header, then each tensor's bytes in order."""
+    import torch
+
+    header, blobs, offset = {}, [], 0
+    for name, t in tensors.items():
+        data = t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy().tobytes()
+        header[name] = {"dtype": SAFETENSORS_DTYPES[str(t.dtype)], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(data)]}
+        blobs.append(data)
+        offset += len(data)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for data in blobs:
+            f.write(data)
+
+
+def peak_rss_gib() -> float:
+    """This process's peak resident set so far (Linux reports KiB)."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
 class SyntheticBatches:
     """Seg-capable training micro-batches made from a seed: a smooth image
     with noise in [-1, 1], a text box mask, one segmentation channel per
@@ -351,7 +413,7 @@ def main() -> None:
         fail("no CUDA device: this smoke test runs only on the GPU")
     import numpy as np
 
-    from udifftext_tpu_torch import demo
+    from udifftext_tpu_torch import demo, loading
     from udifftext_tpu_torch.builders import (
         TEXTDESIGN_SD_2,
         TEXTDESIGN_SD_2_TRAIN,
@@ -411,7 +473,8 @@ def main() -> None:
     )
     from udifftext_tpu_torch.predict import Predictor
     from udifftext_tpu_torch.scripts import flash_variants as variants_probe
-    from udifftext_tpu_torch.scripts import glue_fusion_probe, resblock_probe
+    from udifftext_tpu_torch.scripts import glue_fusion_probe, resblock_probe, serve_bench
+    from udifftext_tpu_torch.serving import InpaintService
     from udifftext_tpu_torch.train import train
 
     kernel_fns = (flash_attention, flash_attention_bwd, geglu_ff, ln_gemm, ln_gemm3,
@@ -1158,6 +1221,58 @@ def main() -> None:
                    lambda: predictor(batch, torch.Generator(dev).manual_seed(9)),
                    statistics.median(seconds[1:]))
 
+    # 5c. a checkpoint round trip at full width: the seeded engine saved under
+    # the reference prefixes (.ckpt) and its VAE alone (.safetensors), both
+    # loaded into a freshly built engine as a run checkpoint and as the
+    # graph's VAE file
+    with tempfile.TemporaryDirectory(prefix="udt_ckpt_") as ckpt_dir:
+        src = bundle.engine
+        t0 = time.perf_counter()
+        ckpt_path, vae_path = f"{ckpt_dir}/udifftext.ckpt", f"{ckpt_dir}/vae.safetensors"
+        torch.save({"state_dict": {prefix + k: v.detach().cpu() for name, prefix in CKPT_PREFIXES
+                                   for k, v in getattr(src, name).state_dict().items()}},
+                   ckpt_path)
+        write_safetensors(vae_path, src.vae.state_dict())
+        save_s = time.perf_counter() - t0
+        graph = copy.deepcopy(TEXTDESIGN_SD_2)
+        graph["first_stage_config"]["params"]["ckpt_path"] = vae_path
+        fresh = build_engine(graph, torch.bfloat16, dev)
+        zero = {k: v for k, v in fresh.engine.unet.state_dict().items() if ZERO_INIT.search(k)}
+        if len(zero) != ZERO_INIT_KEYS or any(bool(v.any()) for v in zero.values()):
+            fail(f"a fresh engine has {len(zero)} zero-initialized UNet parameters (expected "
+                 f"{ZERO_INIT_KEYS}), or one of them is not zero")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reports = {f"{k} (.safetensors)": r for k, r in loading.load_component_ckpts(fresh).items()}
+        torch.cuda.synchronize()
+        vae_s = time.perf_counter() - t0
+        vae_equal = all(torch.equal(a, b_) for a, b_ in zip(fresh.engine.vae.state_dict().values(),
+                                                            src.vae.state_dict().values()))
+        t0 = time.perf_counter()
+        reports.update(loading.load_from_torch_ckpt(fresh.engine, ckpt_path))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        sizes = {os.path.basename(p_): os.path.getsize(p_) / 2**30 for p_ in (ckpt_path, vae_path)}
+    want_reports = {"vae (.safetensors)", "unet", "vae", "label_encoder"}
+    counted = {k: tuple(len(x_) for x_ in r) for k, r in reports.items()}
+    unequal = [f"{name}.{k}" for name, _ in CKPT_PREFIXES
+               for (k, a), b_ in zip(getattr(fresh.engine, name).state_dict().items(),
+                                     getattr(src, name).state_dict().values())
+               if a.dtype != b_.dtype or not torch.equal(a, b_)]
+    log(f"[ckpt] full-width round trip: {', '.join(f'{k} {v:.3f} GiB' for k, v in sizes.items())}; "
+        f"saved in {save_s:.2f} s, the VAE file loaded in {vae_s:.2f} s, the .ckpt in "
+        f"{load_s:.2f} s; (missing, unexpected, mismatched) keys {counted}; "
+        f"{ZERO_INIT_KEYS} zero-initialized UNet parameters zero before the load; "
+        f"{len(unequal)} parameters differ; peak host RSS {peak_rss_gib():.2f} GiB")
+    if set(reports) != want_reports or any(c != (0, 0, 0) for c in counted.values()):
+        fail(f"checkpoint round trip: reports {counted}, expected no missing, unexpected or "
+             f"mismatched key in {sorted(want_reports)}")
+    if not vae_equal or unequal:
+        fail(f"checkpoint round trip: the VAE file's load equal {vae_equal}; parameters that "
+             f"differ after the .ckpt load: {unequal[:5]}")
+    del fresh, src, zero
+    torch.cuda.empty_cache()
+
     # 5b. the implementation switch: the same engine built with attn_impl="plain"
     # (same seed, so the same weights) against the "auto" one, at the demo's shapes
     plain_bundle = build_engine(TEXTDESIGN_SD_2, torch.bfloat16, dev, attn_impl="plain")
@@ -1478,6 +1593,108 @@ def main() -> None:
             np.isfinite(ms) and ms > 0 and np.isfinite(tf) for ms, tf in probe.values()):
         fail(f"flash-variants probe returned {len(probe)} labels of {2 + 4 * pairs}, or a time "
              "that is not positive")
+
+    # 11. serving: the port's serve_bench entry at full width with the demo's
+    # sampler (configs/demo.yaml: 50 steps, CFG 4.0, 10 candidates, batched
+    # search), buckets (1, 8), pipeline depth 2: 2 saturated groups of 8 and 2
+    # single requests, 512² uint8
+    reset(*kernel_fns)
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bench = serve_bench.run(max_batch=8, steps=50, noise_iters=10, batches=2, qps=0.5,
+                            latency_requests=2, buckets=(1, 8), noise_search_batched=True,
+                            pipeline=2, cfg_scale=4.0, device=str(dev))
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = by_path["serve"] = counts(*kernel_fns)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    rec, sat, lat = bench.record, bench.saturated, bench.latency
+    # a warmup group per bucket, then the batcher's groups: 52 UNet evals a
+    # group whatever its bucket (2 batched search evals, 50 steps)
+    groups = (len(rec["buckets"]) + rec["saturated_batcher_stats"]["batches"]
+              + rec["batcher_stats"]["batches"])
+    log(f"[serve] {rec['metric']} {rec['value']:.4f} samples/s (2 groups of 8, saturated); "
+        f"single requests {', '.join(f'{x:.3f}' for x in rec['latency_s'])} s (bucket 1); "
+        f"mean batch size {rec['saturated_batcher_stats']['mean_batch_size']:.2f}; "
+        f"run stat (finalize) p50 {rec['saturated_batcher_stats']['run']['p50_s']:.3f} s; "
+        f"warmup {rec['compile_s']:.2f} s; launch-to-finalize overlap "
+        f"{rec['overlap']['overlapped_s']:.3f} of {rec['overlap']['launch_s']:.3f} s of the later "
+        f"group's launch ({rec['overlap']['share']:.3f}); peak device memory {peak:.2f} GiB; "
+        f"{groups} groups in {serve_s:.2f} s; launches {launches}")
+    log(f"[serve] record {json.dumps(rec)}")
+    if launches != expected(flash_attention=groups * 520, geglu_ff=groups * 780):
+        fail(f"serving launches {launches} over {groups} groups, expected 520 flash forwards and "
+             "780 GEGLU forwards a group")
+    images = [r["image"] for r in sat + lat]
+    if not all(im.dtype == np.uint8 and im.shape == (512, 512, 3) and im.std() > 0
+               for im in images):
+        fail("serving outputs are not non-constant (512, 512, 3) uint8 images")
+    sat_keys = sorted({r["batch_key"] for r in sat})
+    if (len(sat_keys) != 2
+            or sorted((r["batch_key"], r["row"]) for r in sat)
+            != [(k, i) for k in sat_keys for i in range(8)]
+            or any(r["batch_size"] != 8 for r in sat)
+            or [(r["row"], r["batch_size"]) for r in lat] != [(0, 1), (0, 1)]
+            or len({r["batch_key"] for r in lat}) != 2
+            or rec["saturated_batcher_stats"]["mean_batch_size"] != 8.0):
+        fail(f"replay coordinates: saturated {[(r['batch_key'], r['row'], r['batch_size']) for r in sat]}, "
+             f"single {[(r['batch_key'], r['row'], r['batch_size']) for r in lat]}")
+    # one group replayed from its coordinates: same rows, same key, same bucket
+    helper = bench.make_service(1.0)
+    row = helper.build_row(bench.request)
+    replay_batch = helper.batch_of([row] * 8)
+    helper.shutdown()
+    # (under torch.profiler: the device's share of a saturated group's time)
+    replayed = {}
+    profile_groups("serving, one bucket-8 group (the replay)",
+                   lambda: replayed.setdefault("images", bench.predict(replay_batch, sat_keys[0])
+                                               .cpu().numpy()), 8 / rec["value"])
+    again = replayed["images"]
+    differ = [r["row"] for r in sat
+              if r["batch_key"] == sat_keys[0] and not np.array_equal(again[r["row"]], r["image"])]
+    log(f"[serve] group {sat_keys[0]} replayed from (contents, batch_key, batch_size): "
+        f"{8 - len(differ)} of 8 rows bit-equal")
+    if differ:
+        fail(f"the replayed group differs in rows {differ}")
+    # a UNet eval at bucket 8 (CFG-doubled batch 16) with kernels against plain
+    auto_eng = bench.predict.predictor.engine
+    plain_eng = build_engine(TEXTDESIGN_SD_2, torch.bfloat16, dev, attn_impl="plain").engine
+    randomize_parameters(plain_eng, 0)  # the weights serve_bench gives its engine
+    x16, t16, c16 = randn(16, 64, 64, 9), torch.full((16,), 0.3, device=dev), randn(16, 12, 2048)
+    outs, eval_counts = {}, {}
+    with torch.no_grad():
+        for name, eng in (("auto", auto_eng), ("plain", plain_eng)):
+            reset(*kernel_fns)
+            outs[name] = eng.unet(x16, t16, c16, None)[0]
+            torch.cuda.synchronize()
+            eval_counts[name] = counts(*kernel_fns)
+    b8_err = rel_l2(outs["auto"], outs["plain"])
+    log(f"[serve] one UNet eval at bucket 8 (B=16, bf16): relative L2 kernels vs plain "
+        f"{b8_err:.3e} (tol 5e-2, as phase 5b); launches auto {eval_counts['auto']}")
+    if not (b8_err <= 5e-2 and eval_counts["auto"] == expected(flash_attention=10, geglu_ff=15)
+            and eval_counts["plain"] == expected() and torch.isfinite(outs["plain"]).all()):
+        fail("the bucket-8 UNet eval with kernels disagrees with the plain one")
+    del plain_eng, outs, x16, c16
+    # the batcher's two faults the port must not have, on the card: a request
+    # cancelled while queued, then shutdown with the depth-2 pipeline full
+    svc = InpaintService(bench.predict, max_batch=1, max_delay_ms=0.0, size=512, pipeline_depth=2)
+    t0 = time.perf_counter()
+    first, cancelled, last = (svc.submit(bench.request) for _ in range(3))
+    was_cancelled = cancelled.cancel()
+    svc.shutdown()
+    fault_s = time.perf_counter() - t0
+    alive = svc.batcher._thread.is_alive() or svc.batcher._completion_thread.is_alive()
+    done = [f.result(timeout=0) for f in (first, last)]
+    log(f"[serve] a request cancelled while queued, then shutdown under a full pipeline: "
+        f"cancelled {was_cancelled}, the other two served as groups {[r['batch_key'] for r in done]} "
+        f"in {fault_s:.2f} s, threads left {alive}, errors {svc.stats()['errors']}")
+    if not (was_cancelled and cancelled.cancelled() and not alive
+            and [r["batch_key"] for r in done] == [0, 1] and svc.stats()["errors"] == 0
+            and all(r["image"].shape == (512, 512, 3) for r in done)):
+        fail("serving: a cancelled request or a shutdown under a full pipeline went wrong")
+    del bench, auto_eng, svc, done, again
+    torch.cuda.empty_cache()
 
     kernels = []
     for name, src, replaces, key, path in (

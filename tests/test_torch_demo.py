@@ -1,7 +1,7 @@
 """The port's demo entry point on the CPU: its charset and float batch
 against the JAX build's (`udifftext_tpu.charset`, the root demo.py's
 `build_batch`), and `python -m udifftext_tpu_torch.demo` as a one-shot on
-the tiny model graph with seeded random weights."""
+the tiny model graph, with seeded random weights and with a checkpoint."""
 
 import importlib.util
 from pathlib import Path
@@ -78,7 +78,7 @@ def demo_dir(tmp_path, monkeypatch):
     return tmp_path
 
 
-def test_demo_cli_one_shot(demo_dir):
+def test_demo_cli_one_shot(demo_dir, capsys):
     args = ["--image", "in.png", "--mask", "mask.png", "--text", "ab", "--out", "out.png"]
     if not torch.cuda.is_available():  # the default device is the GPU: no silent CPU run
         with pytest.raises(SystemExit, match="no CUDA device"):
@@ -89,7 +89,21 @@ def test_demo_cli_one_shot(demo_dir):
     out = np.asarray(Image.open(demo_dir / "out.png"))
     assert out.shape == (32, 32, 3) and out.dtype == np.uint8 and out.std() > 0
 
+    # with a checkpoint at load_ckpt_path, the demo loads it and samples with it
+    from udifftext_tpu_torch.builders import build_engine, randomize_parameters
+
+    src = randomize_parameters(build_engine(yaml.safe_load(TINY_MODEL_YAML)["model"]["params"],
+                                            torch.float32, "cpu").engine, 9)
+    sd = {f"{prefix}{k}": v for name, prefix in (("unet", "model.diffusion_model."),
+                                                 ("vae", "first_stage_model."),
+                                                 ("label_encoder", "conditioner.embedders.0."))
+          for k, v in getattr(src, name).state_dict().items()}
     (demo_dir / "ckpt").mkdir()
-    (demo_dir / "ckpt" / "model.ckpt").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        demo.main(args)
+    torch.save({"state_dict": sd}, demo_dir / "ckpt" / "model.ckpt")
+    capsys.readouterr()
+    demo.main(args[:-2] + ["--out", "loaded.png", "--device", "cpu"])
+    printed = capsys.readouterr().out
+    for name in ("unet", "vae", "label_encoder"):
+        assert f"[{name}] merged with 0 missing, 0 unexpected, 0 mismatched keys" in printed
+    loaded = np.asarray(Image.open(demo_dir / "loaded.png"))
+    assert loaded.shape == (32, 32, 3) and not np.array_equal(loaded, out)

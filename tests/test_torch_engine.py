@@ -167,8 +167,12 @@ def test_unported_options_raise(engines):
     nb = U.numpy_batch(1)
     with pytest.raises(NotImplementedError, match="encoder-propagation"):
         Predictor(pe, encprop_interval=2)
-    with pytest.raises(NotImplementedError, match="uint8"):
-        Predictor(pe)({**nb, "image": (nb["image"] * 0).astype(np.uint8)})
+    # the uint8 wire format's contract: a mask and no masked
+    u8 = {**nb, "image": (nb["image"] * 0).astype(np.uint8)}
+    with pytest.raises(ValueError, match="requires a 'mask'"):
+        Predictor(pe)({k: v for k, v in u8.items() if k not in ("mask", "masked")})
+    with pytest.raises(ValueError, match="synthesizes 'masked'"):
+        Predictor(pe)(u8)
     cfg = U.tiny_model_cfg()
     cfg["network_config"]["params"]["ctrl_channels"] = 3
     with pytest.raises(NotImplementedError, match="ctrl"):
@@ -193,8 +197,10 @@ import json, os, sys
 import numpy as np, torch, yaml
 from PIL import Image
 import udifftext_tpu_torch
-from udifftext_tpu_torch import config, demo, predict, train
+from udifftext_tpu_torch import config, demo, loading, predict, serving, train
 from udifftext_tpu_torch.builders import build_engine, randomize_parameters
+from udifftext_tpu_torch.scripts import serve, serve_bench
+from udifftext_tpu_torch.utils import ckpt
 from udifftext_tpu_torch.parallel import train as parallel_train
 from udifftext_tpu_torch.ops import flash_variants as fv_ops, groupnorm as gn_ops
 from udifftext_tpu_torch.scripts import flash_variants, glue_fusion_probe, resblock_probe
@@ -234,6 +240,15 @@ Image.fromarray(np.full((40, 40), 255, np.uint8)).save("mask.png")
 demo.main(["--image", "in.png", "--mask", "mask.png", "--text", "ab", "--out", "out.png",
            "--device", "cpu"])
 assert os.path.exists("out.png")
+# a checkpoint through the run config, and the serving benchmark's entry
+torch.save({"state_dict": {"model.diffusion_model." + k: v
+                           for k, v in bundle.engine.unet.state_dict().items()}}, "run.ckpt")
+loading.init_model({"load_ckpt_path": "run.ckpt", "bf16": False}, "cpu",
+                   model_cfg=json.loads(sys.argv[1]))
+bench = serve_bench.run(max_batch=1, steps=1, noise_iters=1, batches=1, qps=0.0,
+                        latency_requests=1, pipeline=2, model_cfg=json.loads(sys.argv[1]),
+                        size=32, device="cpu")
+assert bench.saturated[0]["image"].shape == (32, 32, 3)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "udifftext_tpu"))
 print(json.dumps(bad))
@@ -241,9 +256,9 @@ print(json.dumps(bad))
 
 
 def test_port_never_imports_jax(tmp_path):
-    """Sampling (plain and AAE), one training step, the three probes and the
-    demo CLI in a fresh process leave jax, flax and the JAX package out
-    of sys.modules."""
+    """Sampling (plain and AAE), one training step, the three probes, the
+    demo CLI, a checkpoint load and the serving benchmark in a fresh process
+    leave jax, flax and the JAX package out of sys.modules."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)
     res = subprocess.run(

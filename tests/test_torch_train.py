@@ -29,7 +29,7 @@ from udifftext_tpu.diffusion import loss as JL
 from udifftext_tpu.diffusion.denoiser import DiscreteDenoiser as JDenoiser
 from udifftext_tpu.diffusion.schedules import DiscreteSampling as JSampling
 from udifftext_tpu.parallel import train as JT
-from udifftext_tpu_torch.builders import TEXTDESIGN_SD_2_TRAIN, build_engine
+from udifftext_tpu_torch.builders import TEXTDESIGN_SD_2_TRAIN, build_engine, randomize_parameters
 from udifftext_tpu_torch.diffusion import loss as PL
 from udifftext_tpu_torch.diffusion.denoiser import DiscreteDenoiser
 from udifftext_tpu_torch.diffusion.schedules import DiscreteSampling
@@ -370,8 +370,8 @@ def test_unet_remat_grads_equal():
     kw = dict(in_channels=4, out_channels=4, model_channels=32, num_res_blocks=1,
               attention_resolutions=(2,), channel_mult=(1, 2), num_head_channels=8,
               t_context_dim=16)
-    torch.manual_seed(0)
-    m0 = UNetModel(**kw)
+    # seeded random weights: the zero-initialized output convs would zero most gradients
+    m0 = randomize_parameters(UNetModel(**kw), 0)
     m1 = UNetModel(remat=True, **kw)
     m1.load_state_dict(m0.state_dict())
     rs = np.random.RandomState(2)
@@ -479,7 +479,6 @@ def test_train_loop(tmp_path, capsys):
     max_epochs, and trains only t_attn/t_norm."""
     cfg = U.tiny_model_cfg()
     bundle = build_engine(cfg, torch.float32, "cpu", train=True)
-    from udifftext_tpu_torch.builders import randomize_parameters
     randomize_parameters(bundle.engine, 0)
     before = {n: p.detach().clone() for n, p in bundle.engine.named_parameters()}
     batches = [{**_seg_batch(2, i), "label": np.array(["abc"] * 2, dtype=object)}

@@ -145,6 +145,9 @@ class SamplerSettings:
 class EngineBundle:
     engine: DiffusionEngine
     sampler: SamplerSettings
+    # per-component checkpoint files the graph names ("vae", "label_encoder";
+    # "model" and "parseq" are None here), read by loading.load_component_ckpts
+    ckpt_paths: Dict[str, Optional[str]] = dataclasses.field(default_factory=dict)
 
 
 def _params(node: Optional[Dict[str, Any]]) -> Dict[str, Any]:
@@ -286,7 +289,10 @@ def _build_engine(model_cfg, unet_dtype, device, train, remat, attn_impl) -> Eng
         num_steps=samp_p.get("num_steps", 50),
         cfg_scale=_params(samp_p.get("guider_config")).get("scale", 5.0),
     )
-    return EngineBundle(engine, sampler)
+    # the parseq checkpoint comes with the OCR loss term, which is refused above
+    ckpt_paths = {"model": None, "vae": vae_p.get("ckpt_path"),
+                  "label_encoder": le_p.get("ckpt_path"), "parseq": None}
+    return EngineBundle(engine, sampler, ckpt_paths)
 
 
 @torch.no_grad()

@@ -8,10 +8,11 @@ Reads ./configs/demo.yaml (and the model graph it names) like the JAX
 build's demo.py, resizes image and mask to H×W, and runs the predictor with
 the candidate-batched init-noise search. --aae turns on attend-and-excite
 and prints the per-step local losses; --detailed saves the middle step's
-t_attn maps as .npy files under ./temp/attn_map/. Loading a checkpoint
-into the port is not ported yet: with no checkpoint file the weights are seeded random,
-as the JAX demo falls back to a fresh init; an existing checkpoint raises.
-Needs PyYAML and Pillow. Runs on the GPU (`--device cuda`, the default) and
+t_attn maps as .npy files under ./temp/attn_map/. The model comes from
+`loading.init_model`: the graph's component checkpoints and the config's
+`load_ckpt_path` are loaded where the files exist; with no checkpoint file
+the weights are seeded random (--seed), as the JAX demo falls back to a
+fresh init. Needs PyYAML and Pillow. Runs on the GPU (`--device cuda`, the default) and
 stops with a message when there is none; `--device cpu` asks for the CPU.
 """
 
@@ -25,9 +26,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .builders import build_engine, randomize_parameters
 from .charset import encode_labels
 from .config import load_config
+from .loading import init_model, init_sampling
 from .predict import Predictor
 
 
@@ -73,19 +74,10 @@ def main(argv=None) -> None:
                          "--device cpu to run (slowly) on the CPU")
 
     cfgs = load_config("./configs/demo.yaml")
-    model_cfg = load_config(cfgs["model_cfg_path"])["model"]["params"]
-    bundle = build_engine(model_cfg, torch.bfloat16 if cfgs.get("bf16", True) else torch.float32,
-                          device)
-    ckpt = cfgs.get("load_ckpt_path")
-    if ckpt and os.path.exists(str(ckpt)):
-        raise NotImplementedError(f"loading {ckpt} into the port is not ported yet")
-    print(f"[demo] checkpoint {ckpt} not found — using seeded random weights (seed {args.seed})")
-    randomize_parameters(bundle.engine, args.seed)
-
-    scale = cfgs.get("scale", [5.0, 0.0])
-    scale = scale[0] if isinstance(scale, (list, tuple)) else scale
-    steps = args.steps if args.steps is not None else cfgs.get("steps", bundle.sampler.num_steps)
-    scale = args.scale if args.scale is not None else scale
+    bundle = init_model(cfgs, device, seed=args.seed)
+    sampling = init_sampling(cfgs)
+    steps = args.steps if args.steps is not None else sampling.num_steps
+    scale = args.scale if args.scale is not None else sampling.cfg_scale
     predictor = Predictor(bundle.engine, num_steps=steps, cfg_scale=scale,
                           noise_iters=int(cfgs.get("noise_iters", 10)),
                           aae_enabled=args.aae, detailed=args.detailed,

@@ -30,7 +30,7 @@ from ..ops.cross_attention import (
 )
 from ..ops.geglu import geglu_ff, geglu_ff_ln
 from ..ops.ln_gemm import ln_gemm3, ln_gemm3_supported, ln_ref_f32
-from .layers import Dense, GroupNorm32, LayerNormF32
+from .layers import Dense, GroupNorm32, LayerNormF32, zero_init
 
 KV = Tuple[torch.Tensor, torch.Tensor]
 LN = Tuple[torch.Tensor, torch.Tensor]  # a pre-norm's (scale, bias)
@@ -99,7 +99,8 @@ class CrossAttention(nn.Module):
         self.to_q = Dense(dim, inner, bias=False)
         self.to_k = Dense(context_dim, inner, bias=False)
         self.to_v = Dense(context_dim, inner, bias=False)
-        self.to_out = nn.ModuleList([Dense(inner, dim)])
+        # zero-initialized, as in the reference (attention.py:129-134)
+        self.to_out = nn.ModuleList([zero_init(Dense(inner, dim))])
 
     def project_kv(self, context: torch.Tensor) -> KV:
         """The context's K/V, (B, L, heads, dim_head) each; constant across
@@ -302,7 +303,7 @@ class SpatialTransformer(nn.Module):
                                    attn_impl=attn_impl)
              for _ in range(depth)]
         )
-        self.proj_out = Dense(inner, channels)
+        self.proj_out = zero_init(Dense(inner, channels))
 
     def precompute_kv(self, t_context: Optional[torch.Tensor],
                       v_context: Optional[torch.Tensor]) -> List[Dict[str, KV]]:

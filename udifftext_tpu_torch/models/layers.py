@@ -9,7 +9,8 @@ Dense and conv layers compute in the dtype of their input; their weights
 are cast to it at use (a no-op once `cast_weights` has stored them in the
 compute dtype; for fp32 master weights the cast is in the autograd graph,
 so their gradient arrives in fp32). Norm parameters stay fp32 and norms
-compute in fp32.
+compute in fp32. Dense and conv layers start as the JAX build's do:
+lecun-normal weights (`lecun_normal_`) and zero biases.
 """
 
 from __future__ import annotations
@@ -69,8 +70,22 @@ class LayerNormF32(nn.LayerNorm):
         ).to(x.dtype)
 
 
+def lecun_normal_(weight: torch.Tensor) -> torch.Tensor:
+    """flax's `lecun_normal` in place: a normal truncated at ±2 standard
+    deviations, scaled so that the variance is 1 / fan_in (fan_in: every
+    axis but the first, the output axis, of a Linear or OIHW conv weight)."""
+    fan_in = math.prod(weight.shape[1:])
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978  # the truncation's std
+    return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std)
+
+
 class Dense(nn.Linear):
     """Linear layer computing in its input's dtype."""
+
+    def reset_parameters(self) -> None:
+        lecun_normal_(self.weight)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = None if self.bias is None else self.bias.to(x.dtype)
@@ -78,6 +93,11 @@ class Dense(nn.Linear):
 
 
 class _ConvNHWC(nn.Conv2d):
+    def reset_parameters(self) -> None:
+        lecun_normal_(self.weight)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = None if self.bias is None else self.bias.to(x.dtype)
         y = F.conv2d(x.permute(0, 3, 1, 2), self.weight.to(x.dtype), b,
@@ -93,6 +113,16 @@ class Conv3x3(_ConvNHWC):
 class Conv1x1(_ConvNHWC):
     def __init__(self, in_ch: int, out_ch: int):
         super().__init__(in_ch, out_ch, 1)
+
+
+def zero_init(module: nn.Module) -> nn.Module:
+    """Zero every parameter of `module` in place (the reference's
+    `zero_module`, util.py:233-238): an output projection that starts at
+    zero, so a branch no checkpoint sets adds nothing."""
+    with torch.no_grad():
+        for p in module.parameters():
+            p.zero_()
+    return module
 
 
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:

@@ -19,7 +19,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .attention import SpatialTransformer
-from .layers import Conv1x1, Conv3x3, Dense, GroupNorm32, timestep_embedding, upsample_nearest_2x
+from .layers import (Conv1x1, Conv3x3, Dense, GroupNorm32, timestep_embedding,
+                     upsample_nearest_2x, zero_init)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,7 +101,7 @@ class ResBlock(nn.Module):
         self.in_layers = nn.ModuleList([GroupNorm32(in_ch), nn.SiLU(), Conv3x3(in_ch, out_ch)])
         self.emb_layers = nn.ModuleList([nn.SiLU(), Dense(emb_ch, out_ch)])
         self.out_layers = nn.ModuleList(
-            [GroupNorm32(out_ch), nn.SiLU(), nn.Identity(), Conv3x3(out_ch, out_ch)]
+            [GroupNorm32(out_ch), nn.SiLU(), nn.Identity(), zero_init(Conv3x3(out_ch, out_ch))]
         )
         self.skip_connection = Conv1x1(in_ch, out_ch) if in_ch != out_ch else None
 
@@ -194,7 +195,8 @@ class UNetModel(nn.Module):
             [nn.ModuleList([make(s) for s in blk]) for blk in self.plan.output_blocks]
         )
         self.out = nn.ModuleList(
-            [GroupNorm32(model_channels), nn.SiLU(), Conv3x3(model_channels, out_channels)]
+            [GroupNorm32(model_channels), nn.SiLU(),
+             zero_init(Conv3x3(model_channels, out_channels))]
         )
 
     def _blocks(self):

@@ -12,7 +12,11 @@ keys of BATCH_KEYS (image, masked, mask in [-1, 1] / {0, 1} NHWC at the
 image size; seg (B, H, W, L); seg_mask (B, L); label_ids (B, L)), one
 micro-batch each; an epoch is one pass over it. All random draws of the
 loss come from one generator seeded by `seed`, drawn at random (and
-printed) when None, as the JAX build does.
+printed) when None, as the JAX build does. The loop reads no checkpoint:
+build the bundle with `loading.init_model(cfgs, train=True)`, which loads
+cfgs' `load_ckpt_path` (configs/train.yaml: the SD2-inpainting bootstrap,
+whose missing t_attn branches keep their zero-output init) and the graph's
+component checkpoints, as the JAX train.py's `init_model` does.
 
 The dataset and loader, checkpoint writing and image logs are not ported
 yet; neither is the OCR loss term.
