@@ -95,6 +95,25 @@ safetensors). Phases, each printed on its own line:
    components, frozen parameters bit-identical, trainable ones moved, no
    frozen gradient allocated, launch counts as the layer plan predicts;
    s per step, samples/s, peak device memory, the VAE encodes' share;
+6b. the OCR path. (a) PARSeq-base (udifftext_tpu_torch/models/parseq.py)
+   with seeded random weights, fp32: the full read (26 greedy steps and the
+   cloze refinement) of 16 crops on the card against the same module on the
+   CPU (logits' relative L2, the share of greedy ids that agree, those with
+   a clear top-2 gap all equal), ms per batch; `ParseqPredictor.calc_loss`
+   and its gradient with respect to the images (B=2, 512²) card against CPU.
+   (b) The OCR-loss fine-tuning step at full width: the train graph with
+   `ocr_enabled: true` (PARSeq frozen in fp32, the denoised latent decoded
+   by the fp32 VAE under autograd, the bbox crop read by PARSeq, lambda
+   0.001), synthetic 512² samples collated by the port's
+   `data.loader.collate` (label_ids, parseq_label_ids, r_bbox), 3 optimizer
+   steps of 4 micro-batches of OCR_MICRO_BATCH: every loss component
+   finite, the OCR term > 0, PARSeq and the VAE bit-identical without a
+   gradient, trainable parameters moved, flash and GEGLU launches as phase
+   6 counts them; s per step, samples/s, peak device memory, one step under
+   torch.profiler, and the same step with the term off (its share of a
+   step). (c) OCR_MICRO_BATCH is the largest power of two that fits in
+   80 GB (the decoder keeps its fp32 activations for the backward; measured
+   by udifftext_tpu_torch/scripts/ocr_train_probe.py);
 7. the demo flow of phase 5 with attend-and-excite and map capture
    (aae_enabled, detailed): output, local losses, middle-step maps, and
    flash-backward launches; s/sample;
@@ -132,9 +151,9 @@ PyTorch call computes the same function (scaled_dot_product_attention;
 group_norm then silu), that call's time on the same inputs; the port itself
 never calls it.
 
-Each path (demo, AAE, training, glue probe, ResBlock probe, variants probe,
-serving) runs with the launch counts set to 0 just before it and read just
-after.
+Each path (demo, AAE, training, OCR-loss training, glue probe, ResBlock
+probe, variants probe, serving) runs with the launch counts set to 0 just
+before it and read just after.
 Any failure exits non-zero. The
 second-to-last line is the kernels' JSON record: each kernel's `launches`
 counts the path named by its `launches_path` (training for the kernels the
@@ -149,6 +168,7 @@ their recorded case (ln_gemm and ln_gemm3 too). The last line is
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import os
 import re
@@ -334,6 +354,9 @@ CKPT_PREFIXES = (("unet", "model.diffusion_model."), ("vae", "first_stage_model.
 # 22 ResBlocks, and the UNet's last conv, weights and biases: 110 at full width
 ZERO_INIT = re.compile(r"(\.t_attn\.to_out\.0|\.proj_out|\.out_layers\.3|^out\.2)\.(weight|bias)$")
 ZERO_INIT_KEYS = 110
+# phase 6b's micro-batch: the largest power of two whose OCR-loss step fits in
+# 80 GB (scripts/ocr_train_probe.py; PERF.md records the peak at each size)
+OCR_MICRO_BATCH = 8
 SAFETENSORS_DTYPES = {"torch.float32": "F32", "torch.bfloat16": "BF16", "torch.float16": "F16"}
 
 
@@ -363,49 +386,6 @@ def peak_rss_gib() -> float:
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
 
 
-class SyntheticBatches:
-    """Seg-capable training micro-batches made from a seed: a smooth image
-    with noise in [-1, 1], a text box mask, one segmentation channel per
-    character (a column of the box), label ids of a random word."""
-
-    def __init__(self, n: int, b: int, size: int = 512, seq: int = 12, seed: int = 0):
-        import numpy as np
-
-        from udifftext_tpu_torch.charset import encode_labels
-
-        rs = np.random.RandomState(seed)
-        yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
-        self.batches = []
-        for _ in range(n):
-            image = np.empty((b, size, size, 3), np.float32)
-            mask = np.zeros((b, size, size, 1), np.float32)
-            seg = np.zeros((b, size, size, seq), np.float32)
-            seg_mask = np.zeros((b, seq), np.float32)
-            words = []
-            for i in range(b):
-                f = rs.uniform(1, 4, 3)
-                image[i] = np.sin(np.stack([xx * f[0], yy * f[1], (xx + yy) * f[2]], -1) * 3)
-                n_chars = rs.randint(2, seq + 1)
-                y0, x0 = rs.randint(0, size // 2, 2)
-                h, w = rs.randint(size // 8, size // 3), n_chars * rs.randint(8, size // (2 * seq))
-                mask[i, y0:y0 + h, x0:x0 + w] = 1.0
-                cw = w // n_chars
-                for c in range(n_chars):
-                    seg[i, y0:y0 + h, x0 + c * cw:x0 + (c + 1) * cw, c] = 1.0
-                seg_mask[i, :n_chars] = 1.0
-                words.append("".join(rs.choice(list("ABCDEFGHabcdefgh0123")) for _ in range(n_chars)))
-            image = np.clip(image + 0.1 * rs.standard_normal(image.shape), -1, 1).astype(np.float32)
-            self.batches.append({"image": image, "masked": image * (1 - mask), "mask": mask,
-                                 "seg": seg, "seg_mask": seg_mask,
-                                 "label_ids": encode_labels(words, seq)})
-
-    def __len__(self) -> int:
-        return len(self.batches)
-
-    def __iter__(self):
-        return iter(self.batches)
-
-
 def main() -> None:
     import torch
 
@@ -420,12 +400,15 @@ def main() -> None:
         build_engine,
         randomize_parameters,
     )
+    from udifftext_tpu_torch.data.synthetic import SyntheticBatches
     from udifftext_tpu_torch.models.attention import (
         BasicTransformerBlock,
         GEGLUFeedForward,
         SpatialTransformer,
     )
     from udifftext_tpu_torch.models.layers import cast_weights
+    from udifftext_tpu_torch.models.parseq import PARSeq
+    from udifftext_tpu_torch.ocr import ParseqPredictor
     from udifftext_tpu_torch.ops import _build
     from udifftext_tpu_torch.ops.flash_attention import (
         flash_attention,
@@ -474,8 +457,9 @@ def main() -> None:
     from udifftext_tpu_torch.predict import Predictor
     from udifftext_tpu_torch.scripts import flash_variants as variants_probe
     from udifftext_tpu_torch.scripts import glue_fusion_probe, resblock_probe, serve_bench
+    from udifftext_tpu_torch.scripts.ocr_train_probe import ocr_train_graph
     from udifftext_tpu_torch.serving import InpaintService
-    from udifftext_tpu_torch.train import train
+    from udifftext_tpu_torch.train import to_device, train
 
     kernel_fns = (flash_attention, flash_attention_bwd, geglu_ff, ln_gemm, ln_gemm3,
                   fused_cross_attention, geglu_ff_ln, fused_groupnorm_silu, flash_variant)
@@ -1452,7 +1436,7 @@ def main() -> None:
                "lightning": {"accumulate_grad_batches": accum, "max_epochs": 1}}
         profile_groups(f"one optimizer step ({accum}×{micro_b})",
                        lambda: train(one, batches, bundle, seed=1, log_every=1), step_s[-1])
-    mb = {k: torch.as_tensor(v).to(dev) for k, v in batches.batches[0].items()}
+    mb = to_device(batches.batches[0], dev)
     eps = torch.zeros(micro_b, 64, 64, 4, device=dev)
     with torch.no_grad():
         enc_ms = time_ms(lambda: (engine.encode_first_stage(mb["image"], eps),
@@ -1460,6 +1444,162 @@ def main() -> None:
     log(f"[train] the two fp32 VAE encodes of a micro-batch of {micro_b}: {enc_ms:.1f} ms, "
         f"{accum * enc_ms / 1e3 / step_s[-1]:.3f} of a step")
     del engine, bundle, state, frozen, trained, batches, mb
+
+    # 6b. the OCR path. (a) PARSeq-base with seeded random weights, fp32, on
+    # the card against the same module on the CPU
+    pq_cpu = randomize_parameters(PARSeq(), 0).eval()
+    pq_gpu = copy.deepcopy(pq_cpu).to(dev)
+    read_gpu, read_cpu = ParseqPredictor(pq_gpu), ParseqPredictor(pq_cpu)
+    crops = torch.from_numpy(rs.uniform(0, 1, (16, 32, 128, 3)).astype(np.float32))
+    crops_dev = crops.to(dev)
+    with torch.no_grad():
+        logits_gpu = read_gpu.read_logits(crops_dev)
+        logits_cpu = read_cpu.read_logits(crops)
+        read_ms = time_ms(lambda: read_gpu.read_logits(crops_dev), reps=10)
+    err = rel_l2(logits_gpu, logits_cpu)
+    abs_err = float((logits_gpu.cpu() - logits_cpu).abs().max())
+    top2 = logits_cpu.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 4 * abs_err
+    ids_gpu, ids_cpu = logits_gpu.argmax(-1).cpu(), logits_cpu.argmax(-1)
+    agree = float((ids_gpu == ids_cpu).float().mean())
+    texts = read_gpu.img2txt(crops_dev)
+    log(f"[ocr] PARSeq-base full read (26 greedy steps + refinement) of 16 crops, fp32: card "
+        f"against CPU logits relative L2 {err:.3e} (tol 1e-4), max abs {abs_err:.3e}; greedy ids "
+        f"agree at {agree:.4f} of positions ({int(clear.sum())} of {clear.numel()} with a top-2 "
+        f"gap past 4× the max error, all must agree); {read_ms:.2f} ms per batch of 16; "
+        f"texts {texts[:3]}")
+    if not (err <= 1e-4 and torch.equal(ids_gpu[clear], ids_cpu[clear])
+            and tuple(logits_gpu.shape) == (16, 26, 95)):
+        fail("PARSeq on the card disagrees with the CPU")
+    # calc_loss and its gradient with respect to the images, B=2 at 512²; the
+    # head is shifted toward 'a' so that the words of 'a' score under the 1.0
+    # clamp and carry a gradient
+    with torch.no_grad():
+        for m in (pq_cpu, pq_gpu):
+            m.head.bias[read_cpu.tokenizer.stoi["a"]] += 8.0
+    images = torch.from_numpy(rs.uniform(-1.1, 1.1, (2, 512, 512, 3)).astype(np.float32))
+    bbox = torch.tensor([[200, 264, 100, 356], [0, 512, 0, 512]], dtype=torch.int32)
+    labels = torch.from_numpy(read_cpu.tokenizer.encode(["aaaa", "aaaaaaa"]))
+
+    def loss_and_grad(pred, im):
+        x = im.clone().requires_grad_(True)
+        value = pred.calc_loss(x, bbox, labels)
+        value.sum().backward()
+        return value.detach(), x.grad
+
+    loss_gpu, grad_gpu = loss_and_grad(read_gpu, images.to(dev))
+    loss_cpu, grad_cpu = loss_and_grad(read_cpu, images)
+    loss_ms = time_ms(lambda: loss_and_grad(read_gpu, images.to(dev)), reps=5)
+    loss_err = float(((loss_gpu.cpu() - loss_cpu).abs() / loss_cpu.abs()).max())
+    grad_err = rel_l2(grad_gpu, grad_cpu)
+    log(f"[ocr] calc_loss (B=2, 512², bboxes 64×256 and the whole image) {loss_cpu.tolist()}: "
+        f"card against CPU value {loss_err:.3e} relative (tol 1e-4), image gradient relative "
+        f"L2 {grad_err:.3e} (tol 1e-4); {loss_ms:.2f} ms for the loss and its gradient")
+    if not (float(loss_cpu.max()) < 1.0 and loss_err <= 1e-4 and grad_err <= 1e-4
+            and float(grad_cpu.abs().max()) > 0):
+        fail("calc_loss or its image gradient on the card disagrees with the CPU")
+    del pq_cpu, pq_gpu, read_gpu, read_cpu, crops_dev, images, grad_gpu, grad_cpu
+
+    # (b) the OCR-loss fine-tuning step at full width: the shipped train graph
+    # with ocr_enabled, seeded random weights, synthetic 512² samples collated
+    # by the port's loader. (c) The micro-batch is the largest power of two
+    # that fits in 80 GB (scripts/ocr_train_probe.py): the fp32 decoder keeps
+    # its activations for the OCR term's backward
+    steps, accum, micro_b = 3, 4, OCR_MICRO_BATCH
+    t0 = time.perf_counter()
+    bundle = build_engine(ocr_train_graph(), torch.bfloat16, dev, train=True)
+    engine = bundle.engine
+    randomize_parameters(engine, 0)
+    frozen = {n: p.detach().cpu().clone() for n, p in engine.named_parameters()
+              if not p.requires_grad}
+    trained = {n: p.detach().cpu().clone() for n, p in engine.named_parameters()
+               if p.requires_grad}
+    batches = SyntheticBatches(accum, micro_b, seed=1)
+    log(f"[ocr_train] engine with PARSeq-base (fp32, frozen) and {len(batches)} collated "
+        f"micro-batches of {micro_b} (keys {sorted(batches.batches[0])}) ready in "
+        f"{time.perf_counter() - t0:.2f} s")
+    with tempfile.TemporaryDirectory(prefix="udt_ocr_train_") as log_dir:
+        cfgs = {"batch_size": micro_b, "base_learning_rate": 5e-5, "log_dir": log_dir,
+                "lightning": {"accumulate_grad_batches": accum, "max_epochs": steps}}
+        reset(*kernel_fns)
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = train(cfgs, batches, bundle, seed=0, log_every=1)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = by_path["ocr_train"] = counts(*kernel_fns)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        with open(f"{log_dir}/train_metrics.jsonl") as f:
+            rows = [json.loads(line) for line in f]
+    step_s = [b_["time"] - a_["time"] for a_, b_ in zip(rows, rows[1:])]
+    log(f"[ocr_train] {steps} optimizer steps of {accum}×{micro_b} samples with the OCR term "
+        f"in {train_s:.3f} s; s per step after the first {[round(x_, 3) for x_ in step_s]}, "
+        f"{accum * micro_b / step_s[-1]:.2f} samples/s; peak device memory {peak:.2f} GiB; "
+        f"launches {launches}; losses "
+        f"{[{k: round(v, 5) for k, v in r.items() if 'loss' in k} for r in rows]}")
+    for row in rows:
+        vals = {k: v for k, v in row.items() if k.startswith("loss")}
+        if set(vals) != {"loss", "loss/diff_loss", "loss/local_loss", "loss/ocr_loss",
+                         "loss/full_loss"} or not all(np.isfinite(v) for v in vals.values()) \
+                or not vals["loss/ocr_loss"] > 0:
+            fail(f"OCR-step loss components {vals}")
+    if state.step != steps:
+        fail(f"{state.step} optimizer steps, expected {steps}")
+    changed = [n for n, p in engine.named_parameters()
+               if not p.requires_grad and not torch.equal(p.detach().cpu(), frozen[n])]
+    if (changed or any(p.grad is not None for p in engine.parameters() if not p.requires_grad)
+            or not any(n.startswith("parseq.") for n in frozen)):
+        fail(f"frozen parameters (PARSeq and the VAE among them) changed or got gradients: "
+             f"{changed[:5]}")
+    still = [n for n, p in engine.named_parameters()
+             if p.requires_grad and torch.equal(p.detach().cpu(), trained[n])]
+    if still:
+        fail(f"trainable parameters did not move: {still[:5]}")
+    micro = steps * accum  # the layer plan of phase 6: the OCR term adds no UNet eval
+    want = expected(flash_attention=micro * 10, flash_attention_bwd=micro * 9,
+                    geglu_ff=micro * 15)
+    if launches != want:
+        fail(f"OCR-step launches {launches}, predicted {want}")
+    # random PARSeq weights read every word at a CE past the 1.0 clamp, where
+    # the term's gradient is 0. With the head shifted toward 'a' and words of
+    # 'a', the term alone is differentiated to the trainable parameters
+    with torch.no_grad():
+        engine.parseq.head.bias[engine.ocr_predictor.tokenizer.stoi["a"]] += 8.0
+    mb = to_device(batches.batches[0], dev)
+    mb["parseq_label_ids"] = torch.from_numpy(
+        engine.ocr_predictor.tokenizer.encode(["aaaa"] * micro_b)).to(dev)
+    engine.zero_grad(set_to_none=True)
+    _, parts = engine.loss(mb, torch.Generator(dev).manual_seed(5))
+    parts["loss/ocr_loss"].backward()
+    parts = {k: v.detach() for k, v in parts.items()}
+    grads = [p.grad for p in engine.parameters() if p.requires_grad]
+    ocr_norm = float(torch.stack([g.float().norm() for g in grads if g is not None]).norm())
+    reached = sum(g is not None and bool(g.abs().sum() > 0) for g in grads)
+    log(f"[ocr_train] the OCR term alone on words of 'a' (head shifted +8 toward 'a'): "
+        f"{float(parts['loss/ocr_loss']):.5f}; its gradient reaches {reached} of "
+        f"{len(grads)} trainable tensors, norm {ocr_norm:.4e}")
+    if not (0 < float(parts["loss/ocr_loss"]) < 1.0 and np.isfinite(ocr_norm) and reached > 0
+            and not any(p.grad is not None for p in engine.parameters() if not p.requires_grad)):
+        fail("the OCR term's gradient did not reach the trainable parameters")
+    engine.zero_grad(set_to_none=True)
+    del mb, parts, grads
+    with tempfile.TemporaryDirectory(prefix="udt_ocr_train_") as log_dir:
+        one = {"batch_size": micro_b, "base_learning_rate": 5e-5, "log_dir": log_dir,
+               "lightning": {"accumulate_grad_batches": accum, "max_epochs": 1}}
+        profile_groups(f"one optimizer step with the OCR term ({accum}×{micro_b})",
+                       lambda: train(one, batches, bundle, seed=1, log_every=1), step_s[-1])
+        # the same step without the OCR term, on the same engine and batches
+        engine.loss_cfg = dataclasses.replace(engine.loss_cfg, ocr_enabled=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train(one, batches, bundle, seed=1, log_every=1)
+        torch.cuda.synchronize()
+        off_s = time.perf_counter() - t0
+    log(f"[ocr_train] one optimizer step without the OCR term {off_s:.3f} s: the term takes "
+        f"{1.0 - off_s / step_s[-1]:.3f} of a step with it")
+    del engine, bundle, state, frozen, trained, batches
+    torch.cuda.empty_cache()
 
     # 8. the glue-fusion probe, and the fused block against the unfused one
     calls = 1 + 5 * 20  # per label: one warm-up, then 5 timed runs of K=20

@@ -181,9 +181,12 @@ def test_unported_options_raise(engines):
     cfg["conditioner_config"]["params"]["emb_models"].pop(1)
     with pytest.raises(NotImplementedError, match="embedder graph"):
         build_engine(cfg, torch.float32, "cpu")
+    # the OCR loss term is ported (tests/test_torch_ocr_train.py); an OCR
+    # predictor other than PARSeq is not
     cfg = U.tiny_model_cfg()
-    cfg["loss_fn_config"]["params"]["ocr_enabled"] = True
-    with pytest.raises(NotImplementedError, match="OCR"):
+    cfg["loss_fn_config"]["params"].update(ocr_enabled=True, predictor_config={
+        "target": "sgm.modules.predictors.model.CRNNPredictor"})
+    with pytest.raises(NotImplementedError, match="OCR predictor other than ParseqPredictor"):
         build_engine(cfg, torch.float32, "cpu", train=True)
 
 

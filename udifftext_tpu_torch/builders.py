@@ -24,6 +24,7 @@ from .diffusion.schedules import DiscreteSampling, LegacyDDPMDiscretization
 from .engine import DiffusionEngine
 from .models.label_encoder import LabelEncoder
 from .models.layers import GroupNorm32, cast_weights
+from .models.parseq import PARSeq
 from .models.unet import UNetModel
 from .models.vae import AutoencoderKL, DDConfig
 from .parallel.train import trainable_mask
@@ -145,8 +146,9 @@ class SamplerSettings:
 class EngineBundle:
     engine: DiffusionEngine
     sampler: SamplerSettings
-    # per-component checkpoint files the graph names ("vae", "label_encoder";
-    # "model" and "parseq" are None here), read by loading.load_component_ckpts
+    # per-component checkpoint files the graph names ("vae", "label_encoder",
+    # "parseq" with the OCR loss term; "model" is None here), read by
+    # loading.load_component_ckpts
     ckpt_paths: Dict[str, Optional[str]] = dataclasses.field(default_factory=dict)
 
 
@@ -186,7 +188,9 @@ def build_engine(model_cfg: Dict[str, Any], unet_dtype: torch.dtype = torch.bflo
 
     The UNet computes in `unet_dtype` (weights stored in it), the VAE in fp32
     (bf16 with `first_stage_bf16: true`), the LabelEncoder in fp32. Every
-    parameter is frozen (requires_grad False). With `train`, the UNet
+    parameter is frozen (requires_grad False). With the OCR loss term
+    (`loss_fn_config.params.ocr_enabled`), the engine also holds PARSeq-base,
+    frozen, in fp32. With `train`, the UNet
     parameters whose name matches one of the graph's `opt_keys` (t_attn,
     t_norm) are trainable instead, and kept in fp32 as master weights (their
     layers cast them to the compute dtype at use). `remat` turns on the
@@ -254,7 +258,10 @@ def _build_engine(model_cfg, unet_dtype, device, train, remat, attn_impl) -> Eng
         _require("LegacyDDPM" in (node or {}).get("target", "LegacyDDPM"),
                  "a discretization other than LegacyDDPM")
     loss_p = _params(p.get("loss_fn_config"))
-    _require(not loss_p.get("ocr_enabled", False), "the OCR loss term (ocr_enabled: true)")
+    ocr_enabled = bool(loss_p.get("ocr_enabled", False))
+    pred_node = loss_p.get("predictor_config") or {}
+    _require(not ocr_enabled or "ParseqPredictor" in pred_node.get("target", "ParseqPredictor"),
+             "an OCR predictor other than ParseqPredictor")
     sig_p = _params(loss_p.get("sigma_sampler_config"))
     _require("DiscreteSampling" in (loss_p.get("sigma_sampler_config") or {}).get(
         "target", "DiscreteSampling"), "a sigma sampler other than DiscreteSampling")
@@ -273,11 +280,14 @@ def _build_engine(model_cfg, unet_dtype, device, train, remat, attn_impl) -> Eng
             gaussian_sigma=loss_p.get("gaussian_sigma", 1.0),
             min_attn_size=loss_p.get("min_attn_size", 16),
             lambda_local_loss=loss_p.get("lambda_local_loss", 0.01),
+            lambda_ocr_loss=loss_p.get("lambda_ocr_loss", 0.001),
+            ocr_enabled=ocr_enabled,
         ),
         scale_factor=p.get("scale_factor", 0.18215),
         ucg_rate_label=float(emb["label"].get("ucg_rate", 0.0)),
         mask_multiplier=emb["mask_multiplier"],
         latent_factor=2 ** (len(vae.cfg.ch_mult) - 1),
+        parseq=PARSeq() if ocr_enabled else None,
     )
     # convs read NHWC activations through an NCHW view, which is
     # channels_last in memory: keep their weights channels_last too
@@ -289,9 +299,9 @@ def _build_engine(model_cfg, unet_dtype, device, train, remat, attn_impl) -> Eng
         num_steps=samp_p.get("num_steps", 50),
         cfg_scale=_params(samp_p.get("guider_config")).get("scale", 5.0),
     )
-    # the parseq checkpoint comes with the OCR loss term, which is refused above
     ckpt_paths = {"model": None, "vae": vae_p.get("ckpt_path"),
-                  "label_encoder": le_p.get("ckpt_path"), "parseq": None}
+                  "label_encoder": le_p.get("ckpt_path"),
+                  "parseq": _params(pred_node).get("ckpt_path") if ocr_enabled else None}
     return EngineBundle(engine, sampler, ckpt_paths)
 
 

@@ -1,7 +1,7 @@
-"""Training and guidance losses (port of `udifftext_tpu/diffusion/loss.py`
-without the OCR term): the local attention loss of fine-tuning, the
-min-local loss that scores init-noise candidates and drives attend-and-
-excite, the weighted diffusion loss and their sum, `full_loss`.
+"""Training and guidance losses (port of `udifftext_tpu/diffusion/loss.py`):
+the local attention loss of fine-tuning, the min-local loss that scores
+init-noise candidates and drives attend-and-excite, the weighted diffusion
+loss and their sum with the optional OCR term, `full_loss`.
 
 Layouts (NHWC): seg (B, H, W, L); mask (B, H, W, 1); seg_mask (B, L);
 attention maps {name: (B, heads, N, L')} with N = h·w.
@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Iterator, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -122,25 +122,32 @@ def diff_loss(model_output: torch.Tensor, target: torch.Tensor, w: torch.Tensor)
 
 @dataclasses.dataclass(frozen=True)
 class FullLossConfig:
-    """The `loss_fn_config` settings the port runs (the OCR term is not
-    ported; the builder raises on `ocr_enabled: true`)."""
+    """The `loss_fn_config` settings the port runs."""
 
     kernel_size: int = 3
     gaussian_sigma: float = 1.0
     min_attn_size: int = 16
     lambda_local_loss: float = 0.01
+    lambda_ocr_loss: float = 0.001
+    ocr_enabled: bool = False
 
     @property
     def kernel(self) -> np.ndarray:
         return get_gaussian_kernel(self.kernel_size, self.gaussian_sigma)
 
 
+OcrLossFn = Callable[[torch.Tensor, Dict[str, torch.Tensor]], torch.Tensor]
+
+
 def full_loss(cfg: FullLossConfig, denoiser, network: Callable, cond: Dict[str, Any],
               x: torch.Tensor, batch: Dict[str, torch.Tensor], sigmas: torch.Tensor,
-              noise: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+              noise: torch.Tensor, ocr_loss_fn: Optional[OcrLossFn] = None,
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Diffusion loss + lambda·local loss of the clean latent x noised at
     `sigmas` (B,) with standard-normal `noise`; `network` must capture the
-    t_attn maps. Returns (loss, {loss/diff_loss, loss/local_loss,
+    t_attn maps. With `cfg.ocr_enabled` and an `ocr_loss_fn` (denoised
+    latent, batch → per-sample OCR loss (B,)), lambda_ocr·its mean is added
+    too. Returns (loss, {loss/diff_loss, loss/local_loss[, loss/ocr_loss],
     loss/full_loss}), batch means."""
     noised = x + noise * append_dims(sigmas, x.ndim)
     model_output, aux = denoiser(network, noised, sigmas, cond)
@@ -149,4 +156,9 @@ def full_loss(cfg: FullLossConfig, denoiser, network: Callable, cond: Dict[str, 
     kernel = torch.as_tensor(cfg.kernel, device=x.device)
     l_loss = local_loss(aux, batch["seg"], batch["seg_mask"], kernel, cfg.min_attn_size).mean()
     loss = d_loss + cfg.lambda_local_loss * l_loss
-    return loss, {"loss/diff_loss": d_loss, "loss/local_loss": l_loss, "loss/full_loss": loss}
+    parts = {"loss/diff_loss": d_loss, "loss/local_loss": l_loss}
+    if cfg.ocr_enabled and ocr_loss_fn is not None:
+        o_loss = ocr_loss_fn(model_output, batch).mean()
+        loss = loss + cfg.lambda_ocr_loss * o_loss
+        parts["loss/ocr_loss"] = o_loss
+    return loss, {**parts, "loss/full_loss": loss}

@@ -4,7 +4,11 @@ and sampling.
 `loss` is the fine-tuning objective: the VAE latent of the image noised at
 a sampled sigma, denoised by the UNet under the conditioning (with label
 dropout), scored by the weighted diffusion loss plus the local attention
-loss on the t_attn maps. The VAE and the LabelEncoder run without autograd.
+loss on the t_attn maps and, with `ocr_enabled`, the OCR loss: the denoised
+latent decoded by the VAE and its bbox crop read by the frozen PARSeq. The
+encodes and the LabelEncoder run without autograd; the decode and PARSeq run
+under it (their parameters frozen), so the OCR term's gradient reaches the
+UNet.
 
 `sample` runs the inference path of test.py / demo.py: conditioning (label
 embedding, mask rescale, VAE encode of the masked image), the init-noise
@@ -40,8 +44,10 @@ from .diffusion.schedules import (
     eps_scaling,
 )
 from .models.label_encoder import LabelEncoder
+from .models.parseq import PARSeq
 from .models.unet import UNetModel
 from .models.vae import AutoencoderKL, DiagonalGaussian
+from .ocr import ParseqPredictor
 
 Batch = Dict[str, torch.Tensor]
 
@@ -78,9 +84,11 @@ class DiffusionEngine(nn.Module):
         ucg_rate_label: float = 0.1,
         mask_multiplier: float = 0.125,
         latent_factor: int = 8,
+        parseq: Optional[PARSeq] = None,
     ):
         super().__init__()
         self.unet, self.vae, self.label_encoder = unet, vae, label_encoder
+        self.parseq = parseq  # the OCR loss's recognizer (None without it)
         self.denoiser = denoiser
         self.discretization = discretization
         self.sigma_sampler = sigma_sampler
@@ -98,6 +106,10 @@ class DiffusionEngine(nn.Module):
     def conditioner(self) -> Conditioner:
         return Conditioner(self.label_encoder, self.vae, self.scale_factor, self.mask_multiplier,
                            self.ucg_rate_label)
+
+    @property
+    def ocr_predictor(self) -> Optional[ParseqPredictor]:
+        return None if self.parseq is None else ParseqPredictor(self.parseq)
 
     def conditionings(self, batch: Batch, posterior_eps: Optional[torch.Tensor] = None):
         return self.conditioner.get_unconditional_conditioning(batch, posterior_eps)
@@ -121,8 +133,10 @@ class DiffusionEngine(nn.Module):
         noise: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The fine-tuning loss of a batch (image, masked, mask, seg,
-        seg_mask, label_ids) → (loss, {loss/diff_loss, loss/local_loss,
-        loss/full_loss}), differentiable in the UNet's parameters.
+        seg_mask, label_ids; with the OCR term also r_bbox and
+        parseq_label_ids) → (loss, {loss/diff_loss, loss/local_loss[,
+        loss/ocr_loss], loss/full_loss}), differentiable in the UNet's
+        parameters.
 
         The random draws, each (B, h, w, 4) standard normal with (h, w) the
         latent size unless said otherwise, are taken from the arguments or,
@@ -148,8 +162,16 @@ class DiffusionEngine(nn.Module):
         with torch.no_grad():  # the VAE and the LabelEncoder are frozen
             x = self.encode_first_stage(batch["image"], image_eps)
             cond = conditioner(batch, masked_eps, ucg_keep=ucg_keep)
+        ocr_loss_fn = None
+        predictor = self.ocr_predictor
+        if self.loss_cfg.ocr_enabled and predictor is not None:
+            def ocr_loss_fn(model_output, b):
+                # under autograd: the gradient goes through the frozen decoder
+                # and recognizer to the denoised latent
+                return predictor.calc_loss(self.decode_first_stage(model_output), b["r_bbox"],
+                                           b["parseq_label_ids"])
         return full_loss(self.loss_cfg, self.denoiser, self.network(capture_attn=True), cond, x,
-                         batch, self.sigma_sampler(sigma_idx), noise.to(x.dtype))
+                         batch, self.sigma_sampler(sigma_idx), noise.to(x.dtype), ocr_loss_fn)
 
     def decode_first_stage(self, z: torch.Tensor) -> torch.Tensor:
         return self.vae.decode(z / self.scale_factor)

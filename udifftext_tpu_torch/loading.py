@@ -4,14 +4,15 @@
 
 The boot sequence is the reference's (util.py:7-22, diffusion.py:87-105):
 build the graph, load the per-component checkpoints the graph names (VAE,
-LabelEncoder), then strict=False load the run's checkpoint: a full
-UDiffText `.ckpt` (UNet, VAE and LabelEncoder in one state dict) or the
-SD2-inpainting bootstrap (the UNet trunk only: the t_attn branches it
-lacks keep their zero-output init). Every load casts into each parameter's
-dtype on the engine's device: the bf16 UNet, the fp32 master weights of a
-`train=True` engine, the VAE's dtype. The port has no OCR model yet, so
-a parseq checkpoint is not read (the JAX package skips it too when the
-graph has no OCR predictor).
+LabelEncoder and, when the graph has the OCR loss term, PARSeq), then
+strict=False load the run's checkpoint: a full UDiffText `.ckpt` (UNet, VAE
+and LabelEncoder in one state dict) or the SD2-inpainting bootstrap (the
+UNet trunk only: the t_attn branches it lacks keep their zero-output init).
+Every load casts into each parameter's dtype on the engine's device: the
+bf16 UNet, the fp32 master weights of a `train=True` engine, the VAE's
+dtype, fp32 PARSeq. A parseq checkpoint is read only when the engine holds
+PARSeq, as the JAX package reads it only when the graph has an OCR
+predictor.
 """
 
 from __future__ import annotations
@@ -61,12 +62,14 @@ def load_from_torch_ckpt(engine: DiffusionEngine, ckpt_path: str,
 
 
 def load_component_ckpts(bundle: EngineBundle, verbose: bool = True) -> Dict[str, Report]:
-    """Load the VAE and LabelEncoder checkpoint files the model graph names
-    (`bundle.ckpt_paths`), those that exist, into the engine in place."""
+    """Load the VAE, LabelEncoder and PARSeq checkpoint files the model graph
+    names (`bundle.ckpt_paths`), those that exist, into the engine in place
+    (PARSeq's only when the engine holds it). strhub's PARSeq keys need no
+    converter: the port's module carries them."""
     out: Dict[str, Report] = {}
-    for name in ("vae", "label_encoder"):
+    for name in ("vae", "parseq", "label_encoder"):
         path = bundle.ckpt_paths.get(name)
-        if path and os.path.exists(path):
+        if path and os.path.exists(path) and getattr(bundle.engine, name) is not None:
             out[name] = merge_state_dict(getattr(bundle.engine, name), load_state_dict(path),
                                          name, verbose=False)
             if verbose:

@@ -9,8 +9,10 @@ JAX build logs every 10 updates; `log_every` exists so that a short run
 (the chip smoke test, the CPU tests) can read each update's time and loss.
 `batches` is a sized, re-iterable collection of numpy batches with the
 keys of BATCH_KEYS (image, masked, mask in [-1, 1] / {0, 1} NHWC at the
-image size; seg (B, H, W, L); seg_mask (B, L); label_ids (B, L)), one
-micro-batch each; an epoch is one pass over it. All random draws of the
+image size; seg (B, H, W, L); seg_mask (B, L); label_ids (B, L); for the
+OCR loss term r_bbox (B, 4) and parseq_label_ids (B, 27)), one micro-batch
+each, as `data.loader.DataLoader` yields them; an epoch is one pass over
+it. All random draws of the
 loss come from one generator seeded by `seed`, drawn at random (and
 printed) when None, as the JAX build does. The loop reads no checkpoint:
 build the bundle with `loading.init_model(cfgs, train=True)`, which loads
@@ -18,8 +20,7 @@ cfgs' `load_ckpt_path` (configs/train.yaml: the SD2-inpainting bootstrap,
 whose missing t_attn branches keep their zero-output init) and the graph's
 component checkpoints, as the JAX train.py's `init_model` does.
 
-The dataset and loader, checkpoint writing and image logs are not ported
-yet; neither is the OCR loss term.
+Checkpoint writing and image logs are not ported yet.
 """
 
 from __future__ import annotations
@@ -35,7 +36,8 @@ from .builders import EngineBundle
 from .parallel.train import TrainState, train_step
 from .utils.logger import MetricsLogger
 
-BATCH_KEYS = ("image", "masked", "mask", "seg", "seg_mask", "label_ids")
+BATCH_KEYS = ("image", "masked", "mask", "seg", "seg_mask", "label_ids", "r_bbox",
+              "parseq_label_ids")
 
 
 def to_device(batch: Mapping[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:

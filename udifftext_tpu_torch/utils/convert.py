@@ -2,10 +2,13 @@
 
 The inverse of the reference-checkpoint converters of the JAX build
 (`udifftext_tpu/utils/ckpt_torch.py` convert_unet / convert_vae /
-convert_label_encoder): flax module paths map back to the reference torch
-module paths the port's modules carry, HWIO conv kernels to OIHW, (in, out)
-dense kernels to (out, in), norm scales to weights. Inputs are nested dicts
-of numpy arrays (a flax params tree, with or without its "params" level).
+convert_label_encoder / convert_vit / convert_parseq): flax module paths map
+back to the reference torch module paths the port's modules carry, HWIO conv
+kernels to OIHW, (in, out) dense kernels to (out, in), norm scales to
+weights, a packed (d, 3d) `in_proj_kernel` to `in_proj_weight`; other
+leaves (`pos_embed`, `pos_queries`, `in_proj_bias`) keep their names. Inputs
+are nested dicts of numpy arrays (a flax params tree, with or without its
+"params" level).
 """
 
 from __future__ import annotations
@@ -32,13 +35,15 @@ def _flatten(tree, prefix: Path = ()) -> Iterator[Tuple[Path, np.ndarray]]:
 
 def _tensor(leaf: str, v: np.ndarray) -> Tuple[str, torch.Tensor]:
     """(torch leaf name, value) of a flax leaf."""
+    if leaf == "in_proj_kernel":
+        return "in_proj_weight", torch.from_numpy(np.ascontiguousarray(v.T, dtype=np.float32))
     if leaf == "kernel":
         if v.ndim == 4:
             v = v.transpose(3, 2, 0, 1)  # HWIO → OIHW
         elif v.ndim == 2:
             v = v.T
         return "weight", torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
-    name = {"scale": "weight", "embedding": "weight", "bias": "bias"}[leaf]
+    name = {"scale": "weight", "embedding": "weight"}.get(leaf, leaf)
     return name, torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
 
 
@@ -107,6 +112,34 @@ def _label_encoder_path(mods: List[str]) -> List[str]:
     return ["encoder", "layers", m.group(1)] + mods[1:]
 
 
+def _vit_path(mods: List[str]) -> List[str]:
+    m = re.fullmatch(r"blocks_(\d+)", mods[0]) if mods else None
+    return ["blocks", m.group(1)] + mods[1:] if m else mods
+
+
+def _parseq_path(mods: List[str]) -> List[str]:
+    if not mods:
+        return mods  # pos_queries
+    head, rest = mods[0], mods[1:]
+    if head == "encoder":
+        return ["encoder"] + _vit_path(rest)
+    m = re.fullmatch(r"decoder_layers_(\d+)", head)
+    if m:
+        return ["decoder", "layers", m.group(1)] + rest
+    return {"decoder_norm": ["decoder", "norm"], "text_embed": ["text_embed", "embedding"]}.get(
+        head, mods)
+
+
+def vit_from_jax(params) -> Dict[str, torch.Tensor]:
+    """JAX ViTEncoder params → `models.vit.ViTEncoder` state dict (timm keys)."""
+    return _convert(params, _vit_path)
+
+
+def parseq_from_jax(params) -> Dict[str, torch.Tensor]:
+    """JAX PARSeq params → `models.parseq.PARSeq` state dict (strhub keys)."""
+    return _convert(params, _parseq_path)
+
+
 def unet_from_jax(params) -> Dict[str, torch.Tensor]:
     """JAX UNetModel params → `udifftext_tpu_torch.models.unet.UNetModel` state dict."""
     return _convert(params, _unet_path)
@@ -126,9 +159,11 @@ def label_encoder_from_jax(params) -> Dict[str, torch.Tensor]:
 
 
 def engine_from_jax(params: Dict[str, dict]) -> Dict[str, torch.Tensor]:
-    """{"unet", "vae", "label_encoder"} JAX params → a `DiffusionEngine` state dict."""
+    """{"unet", "vae", "label_encoder"[, "parseq"]} JAX params → a
+    `DiffusionEngine` state dict."""
     sd = {}
     for name, fn in (("unet", unet_from_jax), ("vae", vae_from_jax),
-                     ("label_encoder", label_encoder_from_jax)):
-        sd.update({f"{name}.{k}": v for k, v in fn(params[name]).items()})
+                     ("label_encoder", label_encoder_from_jax), ("parseq", parseq_from_jax)):
+        if name in params:
+            sd.update({f"{name}.{k}": v for k, v in fn(params[name]).items()})
     return sd
