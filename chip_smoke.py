@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 Needs one NVIDIA H100 (sm_90a), nvcc, and the repository checkout; imports
-torch, numpy and the port only (no JAX, PyYAML, Pillow, OpenCV or
-safetensors). Phases, each printed on its own line:
+torch, numpy and the port only (no JAX, PyYAML, Pillow, OpenCV,
+matplotlib, imageio or safetensors). Phases, each printed on its own line:
 
 1. the card's name and power limit, as nvidia-smi prints them;
 2. the kernel build from udifftext_tpu_torch/csrc, with its time and the
@@ -142,7 +142,30 @@ safetensors). Phases, each printed on its own line:
    group replayed bit for bit from them, 520 flash and 780 GEGLU launches a group (counted on the
    dispatcher thread), a UNet eval at bucket 8 with kernels against
    attn_impl="plain", and, on a depth-2 service, a request cancelled while
-   queued and a shutdown with the pipeline full.
+   queued and a shutdown with the pipeline full;
+12. the eval CLI (udifftext_tpu_torch.test): `test()` with configs/test.yaml's
+   run (TEST_RUN: CFG 5.0, 50 steps, batch 1, 10 candidates in the
+   sequential search) at full width with seeded random weights on 3
+   synthetic 512² batches with name, label and r_bbox, OCR through a PARSeq
+   file of seeded random weights read by `load_predictor`: every real/,
+   fake/ and grid PNG read back (zlib) at its size, the accuracy line,
+   700 flash and 1050 GEGLU launches a sample (20 search evals and 50
+   steps); s per sample and peak memory; then one sample with
+   attend-and-excite and map capture through make_predictor → predict →
+   average_attn_maps → save_segment_map;
+13. the train CLI (udifftext_tpu_torch.train.main): configs/train.yaml's
+   run (TRAIN_RUN: batch 16, accumulate 4) at full width on synthetic
+   batches, two optimizer steps an epoch for 2 epochs, a checkpoint each
+   epoch with 1 kept, image logs every 2 updates, EMA on, inside a
+   world-size-1 NCCL process group: launches per micro-batch as phase 6
+   plus the image logs' sampling, the checkpoint file and the image PNGs,
+   frozen parameters bit-identical and trainable ones moved against a
+   fresh engine of the same seed, the checkpoint restored into it
+   bit-equal to the run's final parameters, AdamW moments and EMA; s per
+   step, samples/s, the checkpoint's GiB, the loop's seconds blocked in
+   `save` against the background write's, restore seconds, peak device
+   memory and host RSS; then a second run on the same directory resumes at
+   the saved step and takes one more epoch.
 
 Beside every kernel's time stand its plain version's, its bound (the least
 time the card could take: the larger of bytes moved once over 3.35 TB/s and
@@ -152,8 +175,8 @@ group_norm then silu), that call's time on the same inputs; the port itself
 never calls it.
 
 Each path (demo, AAE, training, OCR-loss training, glue probe, ResBlock
-probe, variants probe, serving) runs with the launch counts set to 0 just
-before it and read just after.
+probe, variants probe, serving, eval CLI, train CLI) runs with the launch
+counts set to 0 just before it and read just after.
 Any failure exits non-zero. The
 second-to-last line is the kernels' JSON record: each kernel's `launches`
 counts the path named by its `launches_path` (training for the kernels the
@@ -167,12 +190,14 @@ their recorded case (ln_gemm and ln_gemm3 too). The last line is
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
 import os
 import re
 import resource
+import socket
 import statistics
 import subprocess
 import sys
@@ -379,6 +404,76 @@ def write_safetensors(path: str, tensors: dict) -> None:
         f.write(head)
         for data in blobs:
             f.write(data)
+
+
+# configs/test.yaml and configs/train.yaml as dicts (the card's machine has no
+# PyYAML); tests/test_torch_eval_cli.py and tests/test_torch_train_cli.py hold
+# each equal to its file, and phases 12 and 13 change only the keys listed in
+# EVAL_OVERRIDES / TRAIN_OVERRIDES
+TEST_RUN = {
+    "type": "test", "load_ckpt_path": "./checkpoints/{your checkpoint path}.ckpt",
+    "model_cfg_path": "./configs/test/textdesign_sd_2.yaml",
+    "dataset_cfg_path": "./configs/dataset/icd13.yaml", "output_dir": "./outputs",
+    "temp_dir": "./temp", "channel": 4, "factor": 8, "scale": [5.0, 0.0], "noise_iters": 10,
+    "force_uc_zero_embeddings": ["label"], "aae_enabled": False, "detailed": False,
+    "encprop_interval": 0, "bf16": True, "steps": 50, "init_step": 0,
+    "eval_data_parallel": False, "batch_size": 1, "num_workers": 0, "max_iter": 100,
+    "shuffle": True, "quan_test": False, "ocr_enabled": True,
+    "predictor_config": {"target": "sgm.modules.predictors.model.ParseqPredictor",
+                         "params": {"ckpt_path": "./checkpoints/predictors/parseq-bb5792a6.pt"}},
+}
+TRAIN_RUN = {
+    "type": "train", "save_ckpt_dir": "./checkpoints",
+    "load_ckpt_path": "./checkpoints/pretrained/512-inpainting-ema.ckpt",
+    "model_cfg_path": "./configs/train/textdesign_sd_2.yaml",
+    "dataset_cfg_path": "./configs/dataset/locr.yaml", "save_ckpt_freq": 1, "num_workers": 0,
+    "batch_size": 16, "base_learning_rate": 5e-05, "shuffle": False, "bf16": True,
+    "lightning": {"max_epochs": 100, "accumulate_grad_batches": 4,
+                  "default_root_dir": "./logs/base_logs"},
+}
+EVAL_OVERRIDES = ("load_ckpt_path", "output_dir", "temp_dir", "max_iter",
+                  "predictor_config.params.ckpt_path")
+TRAIN_OVERRIDES = ("load_ckpt_path", "save_ckpt_dir", "keep_ckpts", "log_dir", "log_images_freq",
+                   "use_ema", "lightning.max_epochs")
+
+
+def eval_run_config(work_dir: str, parseq_path: str) -> dict:
+    """Phase 12's run config: configs/test.yaml with no UDiffText checkpoint
+    (seeded random weights), outputs under `work_dir`, 3 batches, and a
+    PARSeq file of seeded random weights."""
+    cfgs = copy.deepcopy(TEST_RUN)
+    cfgs.update(load_ckpt_path=f"{work_dir}/none.ckpt", output_dir=f"{work_dir}/outputs",
+                temp_dir=f"{work_dir}/temp", max_iter=3)
+    cfgs["predictor_config"]["params"]["ckpt_path"] = parseq_path
+    return cfgs
+
+
+def train_run_config(work_dir: str, max_epochs: int = 2) -> dict:
+    """Phase 13's run config: configs/train.yaml with no bootstrap checkpoint
+    (seeded random weights), checkpoints and logs under `work_dir`, one
+    checkpoint kept, image logs every 2 updates, EMA on, `max_epochs`."""
+    cfgs = copy.deepcopy(TRAIN_RUN)
+    cfgs.update(load_ckpt_path=f"{work_dir}/none.ckpt", save_ckpt_dir=f"{work_dir}/ckpt",
+                keep_ckpts=1, log_dir=f"{work_dir}/logs", log_images_freq=2, use_ema=True)
+    cfgs["lightning"]["max_epochs"] = max_epochs
+    return cfgs
+
+
+class Tee:
+    """A stdout that also keeps what was written to it."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text: str) -> int:
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self) -> None:
+        self.out.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
 
 
 def peak_rss_gib() -> float:
@@ -1834,6 +1929,232 @@ def main() -> None:
             and all(r["image"].shape == (512, 512, 3) for r in done)):
         fail("serving: a cancelled request or a shutdown under a full pipeline went wrong")
     del bench, auto_eng, svc, done, again
+    torch.cuda.empty_cache()
+
+    # 12. the eval CLI (udifftext_tpu_torch.test): configs/test.yaml's run at
+    # full width (CFG 5.0, 50 steps, batch 1, 10 candidates in the sequential
+    # search, which test.yaml keeps), 3 synthetic 512² batches with name, label
+    # and r_bbox, OCR through a PARSeq file of seeded random weights
+    from udifftext_tpu_torch import test as eval_cli
+    from udifftext_tpu_torch.data.loader import collate
+    from udifftext_tpu_torch.data.synthetic import synthetic_sample
+    from udifftext_tpu_torch.utils.png import read_png
+    from udifftext_tpu_torch.utils.viz import average_attn_maps, save_segment_map
+
+    with tempfile.TemporaryDirectory(prefix="udt_eval_") as work:
+        parseq_path = f"{work}/parseq.pt"
+        torch.save(randomize_parameters(PARSeq(), 0).state_dict(), parseq_path)
+        cfgs = eval_run_config(work, parseq_path)
+        bundle = loading.init_model(cfgs, dev, seed=0, model_cfg=TEXTDESIGN_SD_2)
+        sampler = loading.init_sampling(cfgs)
+        rs_eval = np.random.RandomState(12)
+        loader = []
+        for i in range(cfgs["max_iter"]):
+            loader.append(collate([synthetic_sample(rs_eval, 512)]))
+            loader[-1]["name"] = [f"eval{i}"]
+        reset(*kernel_fns)
+        held = torch.cuda.memory_allocated(dev) / 2**30  # the engine and what earlier phases hold
+        torch.cuda.reset_peak_memory_stats(dev)
+        tee = Tee(sys.stdout)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            res = eval_cli.test(bundle, sampler, loader, cfgs, seed=0)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        launches = by_path["eval_cli"] = counts(*kernel_fns)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        accuracy = re.search(r"OCR test completed\. Mean accuracy: (\S+)", tee.text())
+        shapes = {}
+        for name in res["names"]:
+            for rel in (f"real/{name}.png", f"fake/{name}.png", f"{name}.png"):
+                shapes[rel] = read_png(f"{cfgs['output_dir']}/{rel}").shape
+        log(f"[eval_cli] {len(res['names'])} batches of 1 (512², 10 candidates in the sequential "
+            f"search, 50 steps, CFG 5.0, PARSeq read of the box): s per sample (sampling to "
+            f"written files) {[round(x_, 3) for x_ in res['seconds']]}, median "
+            f"{statistics.median(res['seconds']):.3f}; {eval_s:.2f} s in all; peak device memory "
+            f"{peak:.2f} GiB ({held:.2f} GiB allocated before the run); OCR "
+            f"{res['correct']}/{res['total']}; launches {launches}")
+        # the sequential search runs 2 UNet evals a candidate, then the 50 steps
+        evals = 2 * cfgs["noise_iters"] + cfgs["steps"]
+        want = expected(flash_attention=len(loader) * evals * 10,
+                        geglu_ff=len(loader) * evals * 15)
+        if launches != want:
+            fail(f"eval CLI launches {launches}, predicted {want} ({evals} UNet evals a sample)")
+        if accuracy is None or res["total"] != len(loader):
+            fail(f"eval CLI: no accuracy line, or {res['total']} OCR reads of {len(loader)}")
+        want_shapes = {rel: (2048 if "/" not in rel else 512, 512, 3) for rel in shapes}
+        if res["names"] != [b_["name"][0] for b_ in loader] or shapes != want_shapes:
+            fail(f"eval CLI files: {shapes}")
+        # one sample with attend-and-excite and map capture, through the CLI's
+        # functions (the GIF and the map grid need imageio and matplotlib, which
+        # this machine lacks: the CPU tests hold them)
+        aae_cfgs = {**cfgs, "aae_enabled": True, "detailed": True}
+        pipeline = eval_cli.make_predictor(aae_cfgs, bundle, sampler)
+        reset(*kernel_fns)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        images, aux = eval_cli.predict(aae_cfgs, pipeline, loader[0],
+                                       torch.Generator(dev).manual_seed(0))
+        maps = average_attn_maps({k: v.float().cpu().numpy() for k, v in aux.items()
+                                  if k.endswith("t_attn")}, layers=bundle.save_attn_layers)
+        label = loader[0]["label"][0]
+        seg = np.load(save_segment_map(maps, label, f"{work}/temp/seg_map/seg_eval0.npy"))
+        aae_s = time.perf_counter() - t0
+        launches = counts(*kernel_fns)
+        n_aae = launches["flash_attention_bwd"] // 10
+        log(f"[eval_cli] one sample with attend-and-excite and map capture: {aae_s:.3f} s, "
+            f"{n_aae} AAE gradient evaluations, layers {bundle.save_attn_layers}, segment map "
+            f"{seg.shape} for '{label}'; launches {launches}")
+        evals += n_aae
+        if not (n_aae >= 50 and launches == expected(flash_attention=evals * 10,
+                                                     flash_attention_bwd=n_aae * 10,
+                                                     geglu_ff=evals * 15)):
+            fail(f"eval CLI AAE launches {launches}")
+        if (images.shape != (1, 512, 512, 3) or not np.isfinite(images).all()
+                or seg.shape != (len(label), 32, 32) or not np.isfinite(seg).all()
+                or tuple(aux["local_losses"].shape) != (50, 1)):
+            fail(f"eval CLI AAE outputs: images {images.shape}, segment map {seg.shape}")
+    del bundle, pipeline, images, aux, maps, loader
+    torch.cuda.empty_cache()
+
+    # 13. the train CLI (udifftext_tpu_torch.train.main): configs/train.yaml's
+    # run at full width (batch 16, accumulate 4) on synthetic batches, two
+    # optimizer steps an epoch, 2 epochs, a checkpoint each epoch (1 kept), image
+    # logs every 2 updates, EMA on, in a world-size-1 NCCL process group (the
+    # gradient all-reduce runs); then a second run on the same directory
+    # resumes and takes one more epoch
+    from udifftext_tpu_torch import train as train_cli
+    from udifftext_tpu_torch.parallel.train import TrainState
+    from udifftext_tpu_torch.utils.profiling import SimpleProfiler
+    from udifftext_tpu_torch.utils.train_ckpt import restore_checkpoint
+
+    accum, micro_b = TRAIN_RUN["lightning"]["accumulate_grad_batches"], TRAIN_RUN["batch_size"]
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK="0", WORLD_SIZE="1",
+                      LOCAL_RANK="0")
+    with tempfile.TemporaryDirectory(prefix="udt_train_cli_") as work:
+        cfgs = train_run_config(work)
+        per_epoch = 2
+        batches = SyntheticBatches(per_epoch * accum, micro_b, seed=13)
+        prof = SimpleProfiler()
+        reset(*kernel_fns)
+        held = torch.cuda.memory_allocated(dev) / 2**30  # what earlier phases hold
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = train_cli.main(cfgs, batches, device=dev, model_cfg=TEXTDESIGN_SD_2_TRAIN,
+                               seed=0, log_every=1, profiler=prof)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = by_path["train_cli"] = counts(*kernel_fns)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        group = (torch.distributed.get_backend(), torch.distributed.get_world_size()) \
+            if torch.distributed.is_initialized() else None
+        ckpt_dir = f"{work}/ckpt/{train_cli.CKPT_SUBDIR}"
+        files = sorted(os.listdir(ckpt_dir))
+        images_dir = f"{cfgs['log_dir']}/images"
+        image_logs = sorted(os.listdir(images_dir)) if os.path.isdir(images_dir) else []
+        with open(f"{cfgs['log_dir']}/train_metrics.jsonl") as f:
+            rows = [json.loads(line) for line in f]
+        steps = per_epoch * cfgs["lightning"]["max_epochs"]
+        step_s = rows[1]["time"] - rows[0]["time"]  # within epoch 0: no save between
+        size_gib = os.path.getsize(f"{ckpt_dir}/{files[-1]}") / 2**30 if files else 0.0
+        blocked, writes = prof.totals["checkpoint"], prof.totals["checkpoint_write (background)"]
+        log(f"[train_cli] {steps} optimizer steps ({accum}×{micro_b}) in 2 epochs in "
+            f"{run_s:.2f} s (engine build, image logs and checkpoints included); s per step "
+            f"(step 1 to 2) {step_s:.3f}, {accum * micro_b / step_s:.2f} samples/s; process "
+            f"group {group}; "
+            f"checkpoints {files} of {size_gib:.3f} GiB; the loop blocked in save "
+            f"{blocked:.3f} s over {prof.counts['checkpoint']} saves against {writes:.3f} s of "
+            f"writing on the background thread; image logs {prof.totals['image_logs']:.2f} s; "
+            f"peak device memory {peak:.2f} GiB ({held:.2f} GiB allocated before the run), peak "
+            f"host RSS {peak_rss_gib():.2f} GiB; launches {launches}")
+        if group != ("nccl", 1):
+            fail(f"the train CLI ran without a world-size-1 NCCL group: {group}")
+        if state.step != steps or files != [f"step_{steps:08d}.pt"]:
+            fail(f"train CLI: step {state.step}, checkpoint files {files}")
+        want_logs = [f"step{s_:07d}_{k}.png" for s_ in range(2, steps + 1, 2)
+                     for k in ("inputs", "reconstructions", "samples")]
+        if image_logs != want_logs or any(read_png(f"{images_dir}/{n_}").shape != (512, 2048, 3)
+                                          for n_ in image_logs):
+            fail(f"train CLI image logs {image_logs}")
+        # per micro-batch 10 / 9 / 15 (phase 6); an image log's 20 sampling evals
+        # (noise_iters 0, no backward) 10 / 0 / 15 each, one log every 2 updates
+        train_part = steps * accum
+        log_evals = 20 * (steps // 2)
+        want = expected(flash_attention=train_part * 10 + log_evals * 10,
+                        flash_attention_bwd=train_part * 9,
+                        geglu_ff=train_part * 15 + log_evals * 15)
+        if launches != want:
+            fail(f"train CLI launches {launches}, predicted {want} ({train_part} micro-batches, "
+                 f"{log_evals} image-log evals)")
+        for row in rows:
+            if not all(np.isfinite(v) for k, v in row.items() if k.startswith("loss")):
+                fail(f"train CLI loss components {row}")
+        # the checkpoint against a fresh engine of the same seed (run 1's start):
+        # frozen parameters bit-identical, trainable ones moved; restored into it,
+        # parameters, AdamW moments and EMA bit-equal to run 1's final state
+        path = f"{ckpt_dir}/{files[-1]}"
+        fresh = loading.init_model(cfgs, dev, seed=0, model_cfg=TEXTDESIGN_SD_2_TRAIN, train=True)
+        saved = torch.load(path, map_location="cpu", mmap=True, weights_only=True)["engine"]
+        moved = still = frozen_diff = 0
+        for n_, p_ in fresh.engine.named_parameters():
+            same = torch.equal(saved[n_], p_.detach().cpu())
+            if p_.requires_grad:
+                moved += not same
+                still += same
+            else:
+                frozen_diff += not same
+        fresh_state = TrainState.create(fresh.engine, use_ema=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restore_checkpoint(path, fresh.engine, fresh_state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        opt_a, opt_b = state.optimizer.state_dict()["state"], \
+            fresh_state.optimizer.state_dict()["state"]
+        unequal = ([n_ for n_, p_ in state.params.items()
+                    if not torch.equal(p_, fresh_state.params[n_])
+                    or not torch.equal(state.ema[n_], fresh_state.ema[n_])]
+                   + [i for i, st in opt_a.items()
+                      if any(not torch.equal(v, opt_b[i][k]) for k, v in st.items())])
+        log(f"[train_cli] restored into a fresh engine in {restore_s:.2f} s: {len(unequal)} "
+            f"parameters, EMA entries or AdamW states differ from run 1's; against run 1's "
+            f"start {frozen_diff} frozen parameters differ, {moved} trainable moved, {still} not")
+        if unequal or fresh_state.step != state.step:
+            fail(f"restored state differs: {unequal[:5]}, step {fresh_state.step}")
+        if frozen_diff or still or not moved:
+            fail("frozen parameters changed, or trainable ones did not move")
+        del fresh, fresh_state, saved, state, opt_a, opt_b
+        torch.cuda.empty_cache()
+        # run 2: the same directory, another seed, one more epoch
+        prof2 = SimpleProfiler()
+        reset(*kernel_fns)
+        tee = Tee(sys.stdout)
+        with contextlib.redirect_stdout(tee):
+            state = train_cli.main(train_run_config(work, max_epochs=1), batches, device=dev,
+                                   model_cfg=TEXTDESIGN_SD_2_TRAIN, seed=1, log_every=1,
+                                   profiler=prof2)
+        torch.cuda.synchronize()
+        launches = counts(*kernel_fns)
+        files = sorted(os.listdir(ckpt_dir))
+        log(f"[train_cli] resumed run: step {state.step}, restore {prof2.totals['restore']:.2f} "
+            f"s, checkpoint files {files}; launches {launches}")
+        if (f"resuming from {path} at step {steps}" not in tee.text()
+                or state.step != steps + per_epoch or files != [f"step_{state.step:08d}.pt"]):
+            fail(f"train CLI resume: step {state.step}, files {files}")
+        # one epoch: per_epoch steps and the image log at its last step
+        if launches != expected(flash_attention=(per_epoch * accum + 20) * 10,
+                                flash_attention_bwd=per_epoch * accum * 9,
+                                geglu_ff=(per_epoch * accum + 20) * 15):
+            fail(f"resumed train CLI launches {launches}")
+        del state, batches
+    torch.distributed.destroy_process_group()
+    for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        os.environ.pop(k)
     torch.cuda.empty_cache()
 
     kernels = []

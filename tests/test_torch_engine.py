@@ -207,7 +207,9 @@ from udifftext_tpu_torch.utils import ckpt
 from udifftext_tpu_torch.parallel import train as parallel_train
 from udifftext_tpu_torch.ops import flash_variants as fv_ops, groupnorm as gn_ops
 from udifftext_tpu_torch.scripts import flash_variants, glue_fusion_probe, resblock_probe
-from udifftext_tpu_torch.utils import convert, logger
+from udifftext_tpu_torch.utils import convert, logger, png, profiling, train_ckpt, viz
+from udifftext_tpu_torch import test as eval_cli, util
+from udifftext_tpu_torch.parallel import dist
 bundle = build_engine(json.loads(sys.argv[1]), torch.float32, "cpu", train=True)
 randomize_parameters(bundle.engine, 0)
 batch = demo.build_batch(np.zeros((40, 40, 3), np.uint8), np.full((40, 40), 255, np.uint8),
@@ -223,6 +225,14 @@ batch["seg"] = np.zeros((1, 32, 32, 12), np.float32)
 state = train.train({"lightning": {"max_epochs": 1}, "log_dir": sys.argv[2]}, [batch], bundle,
                     seed=0)
 assert state.step == 1
+state = train.main({"lightning": {"max_epochs": 1}, "log_dir": sys.argv[2],
+                    "save_ckpt_dir": sys.argv[2], "load_ckpt_path": None, "bf16": False},
+                   [batch], device="cpu", model_cfg=json.loads(sys.argv[1]), seed=0)
+assert train_ckpt.latest_checkpoint(os.path.join(sys.argv[2], "udifftext_tpu_torch"))
+res = eval_cli.test(bundle, bundle.sampler, [dict(batch, name=["x"])],
+                    {"output_dir": sys.argv[2] + "/out", "temp_dir": sys.argv[2] + "/tmp",
+                     "noise_iters": 0, "steps": 1}, seed=0)
+assert res["names"] == ["x"]
 glue_fusion_probe.run(batch=1, reps=1, device="cpu", shapes=(("tiny", 8, 64),), ctx_dim=16,
                       dim_head=32, dtype=torch.float32, runs=1)
 assert len(resblock_probe.run(batch=1, channels=32, hw=4, reps=1, runs=1, device="cpu",
@@ -259,9 +269,10 @@ print(json.dumps(bad))
 
 
 def test_port_never_imports_jax(tmp_path):
-    """Sampling (plain and AAE), one training step, the three probes, the
-    demo CLI, a checkpoint load and the serving benchmark in a fresh process
-    leave jax, flax and the JAX package out of sys.modules."""
+    """Sampling (plain and AAE), one training step, the train and eval CLIs'
+    entry functions, the three probes, the demo CLI, a checkpoint load and
+    the serving benchmark in a fresh process leave jax, flax and the JAX
+    package out of sys.modules."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)
     res = subprocess.run(

@@ -115,3 +115,14 @@ def assert_close(got, want, rtol: float, atol: float, what: str = "") -> None:
         f"{what}: max abs err {err.max():.3e} (at {worst}: got {got[worst]:.6g}, "
         f"want {want[worst]:.6g}; rtol {rtol}, atol {atol})"
     )
+
+
+def flat_dict(d: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+    """A nested dict's leaves keyed by their dotted paths."""
+    out: Dict[str, Any] = {}
+    for k, v in d.items():
+        if isinstance(v, dict):
+            out.update(flat_dict(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out

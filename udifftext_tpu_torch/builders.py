@@ -13,7 +13,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -150,6 +150,9 @@ class EngineBundle:
     # "parseq" with the OCR loss term; "model" is None here), read by
     # loading.load_component_ckpts
     ckpt_paths: Dict[str, Optional[str]] = dataclasses.field(default_factory=dict)
+    # the UNet attention layers whose maps the eval CLI's `detailed` output
+    # averages (network_config's save_attn_layers; empty: all of them)
+    save_attn_layers: Tuple[str, ...] = ()
 
 
 def _params(node: Optional[Dict[str, Any]]) -> Dict[str, Any]:
@@ -302,7 +305,8 @@ def _build_engine(model_cfg, unet_dtype, device, train, remat, attn_impl) -> Eng
     ckpt_paths = {"model": None, "vae": vae_p.get("ckpt_path"),
                   "label_encoder": le_p.get("ckpt_path"),
                   "parseq": _params(pred_node).get("ckpt_path") if ocr_enabled else None}
-    return EngineBundle(engine, sampler, ckpt_paths)
+    return EngineBundle(engine, sampler, ckpt_paths,
+                        tuple(net.get("save_attn_layers", ()) or ()))
 
 
 @torch.no_grad()

@@ -74,11 +74,15 @@ class Conditioner:
 
     def get_unconditional_conditioning(
         self, batch: Dict[str, torch.Tensor], posterior_eps: Optional[torch.Tensor] = None,
-        force_uc_zero_label: bool = True,
+        force_uc_zero_label: bool = True, batch_uc: Optional[Dict[str, torch.Tensor]] = None,
     ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
-        """(c, uc); uc differs from c only in the zeroed label embedding, so
-        it shares c's concat (one VAE encode, one posterior sample)."""
+        """(c, uc). Without `batch_uc` and with the forced zero, uc differs
+        from c only in the zeroed label embedding, so it shares c's concat
+        (one VAE encode, one posterior sample). Otherwise uc is encoded from
+        `batch_uc` (or `batch`) with the same `posterior_eps`, its label
+        embedding zeroed under `force_uc_zero_label`."""
         c = self(batch, posterior_eps)
-        if force_uc_zero_label:
+        if batch_uc is None and force_uc_zero_label:
             return c, {"t_crossattn": torch.zeros_like(c["t_crossattn"]), "concat": c["concat"]}
-        return c, self(batch, posterior_eps)
+        src = batch if batch_uc is None else batch_uc
+        return c, self(src, posterior_eps, force_zero_label=force_uc_zero_label)

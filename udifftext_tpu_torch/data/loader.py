@@ -20,13 +20,14 @@ import multiprocessing as mp
 import queue
 import threading
 import traceback
-from typing import Any, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional
 
 import numpy as np
 
 from ..charset import encode_labels
 from ..config import load_config
 from ..models.parseq import ParseqTokenizer
+from ..parallel.dist import rank_and_world as process_rank_and_count
 from . import datasets as D
 
 _PARSEQ_TOKENIZER = ParseqTokenizer()
@@ -243,16 +244,6 @@ class DataLoader:
                 w.join(timeout=5)
                 if w.is_alive():
                     w.terminate()
-
-
-def process_rank_and_count() -> Tuple[int, int]:
-    """(rank, world size) of `torch.distributed` when it is initialized,
-    else (0, 1)."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
 
 
 def get_dataloader(cfgs, datype: str = "train") -> DataLoader:

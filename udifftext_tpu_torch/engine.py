@@ -16,7 +16,8 @@ search (candidates scored by the min-local attention loss after a 2-step
 rollout), the CFG Euler-EDM loop and the VAE decode. With `aae_enabled`,
 attend-and-excite descends the latent on the min-local loss through the
 unguided UNet before each step; with `detailed`, the middle step's t_attn
-maps are returned.
+maps are returned. `log_images` is a training run's image log: inputs, VAE
+reconstructions and fresh samples.
 
 Noise is injectable: every random draw of `loss` and `sample` may be given
 explicitly; otherwise it is drawn from `generator` in the order each method
@@ -111,8 +112,10 @@ class DiffusionEngine(nn.Module):
     def ocr_predictor(self) -> Optional[ParseqPredictor]:
         return None if self.parseq is None else ParseqPredictor(self.parseq)
 
-    def conditionings(self, batch: Batch, posterior_eps: Optional[torch.Tensor] = None):
-        return self.conditioner.get_unconditional_conditioning(batch, posterior_eps)
+    def conditionings(self, batch: Batch, posterior_eps: Optional[torch.Tensor] = None,
+                      force_uc_zero_label: bool = True):
+        return self.conditioner.get_unconditional_conditioning(batch, posterior_eps,
+                                                               force_uc_zero_label)
 
     def encode_first_stage(self, x: torch.Tensor,
                            posterior_eps: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -353,6 +356,7 @@ class DiffusionEngine(nn.Module):
         posterior_eps: Optional[torch.Tensor] = None,
         noise: Optional[torch.Tensor] = None,
         return_latents: bool = False,
+        latent_hw: Optional[Tuple[int, int]] = None,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Text inpainting (test.py predict() semantics) → (images in [0, 1]
         (B, H, W, 3), aux). aux["noise_scores"] holds the search's scores;
@@ -361,10 +365,14 @@ class DiffusionEngine(nn.Module):
         decoded denoised latent per step in [0, 1], and aux["local_losses"]
         (steps, B).
 
-        posterior_eps: (B, h, w, 4) standard normal; noise: (max(noise_iters,
-        1), B, h, w, 4) standard normal, with (h, w) the latent size."""
+        latent_hw: the latent's (h, w), rectangular allowed; by default the
+        masked image's size over the VAE's factor. posterior_eps: (B, h, w, 4)
+        standard normal; noise: (max(noise_iters, 1), B, h, w, 4) standard
+        normal."""
         b, h, w = batch["masked"].shape[:3]
-        shape = (b, h // self.latent_factor, w // self.latent_factor, 4)
+        if latent_hw is None:
+            latent_hw = (h // self.latent_factor, w // self.latent_factor)
+        shape = (b, int(latent_hw[0]), int(latent_hw[1]), 4)
         dev = self.device
         if posterior_eps is None:
             posterior_eps = torch.randn(shape, generator=generator, device=dev)
@@ -398,3 +406,36 @@ class DiffusionEngine(nn.Module):
             return z, aux
         img = self.decode_first_stage(z)
         return torch.clamp((img + 1.0) / 2.0, 0.0, 1.0), aux
+
+    @torch.no_grad()
+    def log_images(
+        self,
+        batch: Batch,
+        generator: Optional[torch.Generator] = None,
+        n: int = 8,
+        sample: bool = True,
+        num_steps: int = 50,
+        cfg_scale: float = 5.0,
+        image_eps: Optional[torch.Tensor] = None,
+        posterior_eps: Optional[torch.Tensor] = None,
+        noise: Optional[torch.Tensor] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """The training run's image log of the first n samples: {"inputs",
+        "reconstructions" (the VAE's decode of a posterior sample of the
+        image), "samples" (fresh samples with noise_iters=0, when `sample`)},
+        each (n, H, W, 3) in [-1, 1]. The draws (image_eps, then the
+        sample's posterior_eps and noise, as `sample` documents) come from
+        the arguments or from `generator` in that order."""
+        small = {k: v[:n] for k, v in batch.items()}
+        x = small["image"]
+        b, h, w = x.shape[:3]
+        if image_eps is None:
+            image_eps = torch.randn((b, h // self.latent_factor, w // self.latent_factor, 4),
+                                    generator=generator, device=x.device)
+        log = {"inputs": x,
+               "reconstructions": self.decode_first_stage(self.encode_first_stage(x, image_eps))}
+        if sample:
+            imgs, _ = self.sample(small, generator, num_steps=num_steps, cfg_scale=cfg_scale,
+                                  noise_iters=0, posterior_eps=posterior_eps, noise=noise)
+            log["samples"] = imgs * 2.0 - 1.0
+        return log

@@ -1,5 +1,5 @@
-"""The fine-tuning step on one device (port of
-`udifftext_tpu/parallel/train.py` without the mesh).
+"""The fine-tuning step (port of `udifftext_tpu/parallel/train.py`; its
+`data` mesh is one process per card, `parallel/dist.py`).
 
   - Selective trainability: only UNet parameters whose name has a segment
     containing one of `opt_keys` (t_attn, t_norm) train; `build_engine(...,
@@ -10,20 +10,30 @@
     optimizer-step count, as optax reads its schedule.
   - Gradient accumulation: one backward per micro-batch summed into .grad,
     divided by the micro-batch count before the update.
+  - Data parallelism: under a process group, after the accumulation loop
+    the trainable gradients are averaged over the processes (one bucketed
+    all-reduce, `dist.all_reduce_mean_`), and so are the returned loss and
+    components, so every process logs the global mean.
   - EMA of the trainable parameters (LitEma warm-up decay), updated in
     place after each update. The JAX build keeps an EMA of every parameter;
     a frozen one's EMA is the parameter itself, so the port stores none.
+  - The other LR schedules of the reference (`sgm/lr_scheduler.py`):
+    warm-up then cosine, cosine cycles, warm-up then linear, as plain
+    functions of the step.
 """
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
+import math
 from typing import Any, Callable, Dict, Iterable, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from ..models.layers import name_has_key
+from . import dist
 
 LossFn = Callable[[Any], Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
 
@@ -44,6 +54,61 @@ def epoch_decay_schedule(base_lr: float, steps_per_epoch: int,
 
     def schedule(step: int) -> float:
         return base_lr * decay ** (step // max(steps_per_epoch, 1))
+
+    return schedule
+
+
+def warmup_cosine_schedule(base_lr: float, warmup_steps: int, total_steps: int,
+                           lr_min: float = 0.0, lr_start: float = 0.0) -> Callable[[int], float]:
+    """LambdaWarmUpCosineScheduler: linear warm-up from lr_start to base_lr,
+    then cosine decay to lr_min at total_steps."""
+
+    def schedule(step: int) -> float:
+        if step < warmup_steps:
+            return lr_start + (base_lr - lr_start) * step / max(warmup_steps, 1)
+        t = min(max((step - warmup_steps) / max(total_steps - warmup_steps, 1), 0.0), 1.0)
+        return lr_min + 0.5 * (base_lr - lr_min) * (1.0 + math.cos(math.pi * t))
+
+    return schedule
+
+
+def warmup_cosine_cycles_schedule(warm_up_steps: Sequence[int], f_min: Sequence[float],
+                                  f_max: Sequence[float], f_start: Sequence[float],
+                                  cycle_lengths: Sequence[int],
+                                  linear: bool = False) -> Callable[[int], float]:
+    """LambdaWarmUpCosineScheduler2 / LambdaLinearScheduler: cycles of the
+    given lengths, each a linear warm-up from f_start to f_max then a cosine
+    (or linear) decay to f_min; an LR multiplier (use with base LR 1.0).
+    Past the last cycle, the last cycle's decay goes on."""
+    cum = [0]
+    for n in cycle_lengths:
+        cum.append(cum[-1] + n)
+
+    def schedule(step: int) -> float:
+        cycle = min(bisect.bisect_left(cum[1:], step), len(cycle_lengths) - 1)
+        n = step - cum[cycle]
+        w, lo, hi, st, ln = (warm_up_steps[cycle], f_min[cycle], f_max[cycle], f_start[cycle],
+                             cycle_lengths[cycle])
+        if n < w:
+            return (hi - st) / max(w, 1.0) * n + st
+        if linear:
+            return lo + (hi - lo) * (ln - n) / ln
+        t = min((n - w) / max(ln - w, 1.0), 1.0)
+        return lo + 0.5 * (hi - lo) * (1.0 + math.cos(t * math.pi))
+
+    return schedule
+
+
+def warmup_linear_schedule(base_lr: float, warmup_steps: int, total_steps: int,
+                           lr_min: float = 0.0, lr_start: float = 0.0) -> Callable[[int], float]:
+    """Linear warm-up from lr_start to base_lr, then linear decay to lr_min
+    at total_steps."""
+
+    def schedule(step: int) -> float:
+        if step < warmup_steps:
+            return lr_start + (base_lr - lr_start) * step / max(warmup_steps, 1)
+        t = min(max((step - warmup_steps) / max(total_steps - warmup_steps, 1), 0.0), 1.0)
+        return base_lr + (lr_min - base_lr) * t
 
     return schedule
 
@@ -88,9 +153,10 @@ class TrainState:
 def train_step(state: TrainState, micro_batches: Sequence[Any], loss_fn: LossFn,
                ema_decay: float = 0.9999) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One optimizer update from len(micro_batches) micro-batches: the
-    gradients averaged over them, one AdamW update, then the EMA. Returns the
-    loss and each aux component averaged over the micro-batches (detached,
-    on the device: nothing here waits for the device)."""
+    gradients averaged over them (and over the processes of a process
+    group), one AdamW update, then the EMA. Returns the loss and each aux
+    component averaged likewise (detached, on the device: without a process
+    group nothing here waits for the device)."""
     state.optimizer.zero_grad(set_to_none=True)
     loss_sum = None
     aux_sum: Dict[str, torch.Tensor] = {}
@@ -104,6 +170,15 @@ def train_step(state: TrainState, micro_batches: Sequence[Any], loss_fn: LossFn,
     for p in state.params.values():
         if p.grad is not None:
             p.grad.div_(n)
+    if dist.is_distributed():
+        for p in state.params.values():  # every process reduces the same buffers
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        dist.all_reduce_mean_([p.grad for p in state.params.values()])
+        logged = torch.stack([loss_sum] + [aux_sum[k] for k in sorted(aux_sum)]).float()
+        dist.all_reduce_mean_([logged])
+        loss_sum = logged[0]
+        aux_sum = {k: logged[i + 1] for i, k in enumerate(sorted(aux_sum))}
     lr = state.schedule(state.step)
     for group in state.optimizer.param_groups:
         group["lr"] = lr
