@@ -165,7 +165,24 @@ matplotlib, imageio or safetensors). Phases, each printed on its own line:
    step, samples/s, the checkpoint's GiB, the loop's seconds blocked in
    `save` against the background write's, restore seconds, peak device
    memory and host RSS; then a second run on the same directory resumes at
-   the saved step and takes one more epoch.
+   the saved step and takes one more epoch;
+14. the sampling options, on phase 5's engine and batch (512², CFG 4.0),
+   run after phase 5b: (a) UNetModel.forward_cached and decode_cached on its
+   own skip stack equal to forward at the demo's CFG-doubled B=2 in bf16,
+   with the flash/GEGLU launches `unet_plan` predicts for the whole UNet and
+   for its middle and output blocks; (b) encoder propagation with every step
+   key equal to the exact 50-step Euler loop; (c) Predictor with
+   encprop_interval 2 and 3 (10 candidates in the batched search, 50 steps;
+   no checkpoint identity, so the gate warns once): finite, not constant,
+   the plan's launches for its key and reuse steps, s per sample (median of
+   3, interleaved with the exact predictor's) and the PSNR against the exact
+   image (random weights: printed, not gated); (d) the gate refusing a
+   checkpoint file with no report, udifftext_tpu_torch.scripts.encprop_quality's
+   entry function writing its report, and the gate then passing; (e) Heun,
+   Euler-ancestral, DPM++(2S) ancestral, DPM++(2M), LMS and Euler with churn
+   for 5 steps through the engine's CFG denoiser: finite, the UNet evals each
+   implies in launches, and within phase 5b's relative-L2 tolerance of the
+   same sampler on the attn_impl="plain" engine with the same draws.
 
 Beside every kernel's time stand its plain version's, its bound (the least
 time the card could take: the larger of bytes moved once over 3.35 TB/s and
@@ -175,8 +192,9 @@ group_norm then silu), that call's time on the same inputs; the port itself
 never calls it.
 
 Each path (demo, AAE, training, OCR-loss training, glue probe, ResBlock
-probe, variants probe, serving, eval CLI, train CLI) runs with the launch
-counts set to 0 just before it and read just after.
+probe, variants probe, serving, eval CLI, train CLI, encoder propagation at
+interval 2, the other samplers) runs with the launch counts set to 0 just
+before it and read just after.
 Any failure exits non-zero. The
 second-to-last line is the kernels' JSON record: each kernel's `launches`
 counts the path named by its `launches_path` (training for the kernels the
@@ -479,6 +497,218 @@ class Tee:
 def peak_rss_gib() -> float:
     """This process's peak resident set so far (Linux reports KiB)."""
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def plan_launches(unet, hw: int) -> tuple:
+    """((flash, GEGLU) launches of the UNet's encoder, (flash, GEGLU) of its
+    middle and output blocks) for one bf16 eval at latent size hw² on the
+    card, from `unet.plan` and the wrappers' shape gates: a self-attention
+    takes the flash kernel where `flash_shape_ok` holds, a feed-forward the
+    GEGLU kernel where its token count is a multiple of 128."""
+    from udifftext_tpu_torch.ops.attention import flash_shape_ok
+
+    def count(blocks):
+        fl = ge = 0
+        for specs in blocks:
+            for s in specs:
+                if s.kind == "attn":
+                    n = (hw // s.ds) ** 2
+                    fl += unet.transformer_depth * flash_shape_ok(n, n, s.dim_head)
+                    ge += unet.transformer_depth * (n % 128 == 0)
+        return fl, ge
+
+    return count(unet.plan.input_blocks), count((unet.plan.middle_block,)
+                                                + unet.plan.output_blocks)
+
+
+def sampling_options(engine, plain_engine, batch, kernel_fns, expected, by_path, tol) -> None:
+    """Phase 14: the sampling options on phase 5's full-width engine and
+    batch (512², B=1, CFG 4.0), beside `plain_engine` (the same seeded
+    weights under attn_impl="plain")."""
+    import numpy as np
+    import torch
+
+    from udifftext_tpu_torch.builders import TEXTDESIGN_SD_2
+    from udifftext_tpu_torch.diffusion import sampling as SP
+    from udifftext_tpu_torch.predict import Predictor
+    from udifftext_tpu_torch.scripts import encprop_quality
+    from udifftext_tpu_torch.utils import encprop_gate
+
+    dev = engine.device
+    fns = kernel_fns
+    size = batch["image"].shape[1]
+    hw = size // engine.latent_factor
+    (enc_fl, enc_ge), (dec_fl, dec_ge) = plan_launches(engine.unet, hw)
+
+    def evals(full: int, decode: int = 0) -> dict:
+        """Launch counts of `full` whole UNet evals and `decode` decode_cached ones."""
+        return expected(flash_attention=full * (enc_fl + dec_fl) + decode * dec_fl,
+                        geglu_ff=full * (enc_ge + dec_ge) + decode * dec_ge)
+
+    # (a) the cached entry points at the demo's CFG-doubled B=2, bf16, kernels
+    g = torch.Generator(dev).manual_seed(14)
+    unet = engine.unet
+    x = torch.randn(2, hw, hw, unet.in_channels, generator=g, device=dev).to(unet.dtype)
+    t = torch.tensor([0.3, 0.3], device=dev)
+    ctx = torch.randn(2, 12, unet.t_context_dim, generator=g, device=dev).to(unet.dtype)
+    got = {}
+    with torch.no_grad():
+        for name, call in (("forward", lambda: unet(x, t, ctx, None)[0]),
+                           ("forward_cached", lambda: unet.forward_cached(x, t, ctx)),
+                           ("decode_cached", lambda: unet.decode_cached(hs, t, ctx))):
+            reset(*fns)
+            got[name] = call()
+            torch.cuda.synchronize()
+            got[name + " launches"] = counts(*fns)
+            if name == "forward_cached":
+                got[name], hs = got[name]
+    log(f"[sampling] (a) forward_cached and decode_cached on its own stack against forward "
+        f"(B=2, bf16): max |Δ| {float((got['forward_cached'] - got['forward']).abs().max()):.3e} "
+        f"/ {float((got['decode_cached'] - got['forward']).abs().max()):.3e}; skip stack of "
+        f"{len(hs)}; launches {got['forward_cached launches']} / {got['decode_cached launches']} "
+        f"(the plan: encoder {enc_fl} flash / {enc_ge} GEGLU, middle and output blocks "
+        f"{dec_fl} / {dec_ge})")
+    if not (torch.equal(got["forward_cached"], got["forward"])
+            and torch.equal(got["decode_cached"], got["forward"])):
+        fail("forward_cached or decode_cached on its own stack differs from forward")
+    if (got["forward launches"] != evals(1) or got["forward_cached launches"] != evals(1)
+            or got["decode_cached launches"] != evals(0, 1)):
+        fail(f"cached entry points launched {got}, the plan predicts {evals(1)} / {evals(0, 1)}")
+    del x, ctx, hs, got
+
+    # (b) all-key encoder propagation against the exact sampler on one latent
+    arr = Predictor(engine).array_batch(batch)
+    shape = (1, hw, hw, 4)
+    eps = torch.randn(shape, generator=g, device=dev)
+    with torch.no_grad():
+        c, uc = engine.conditionings(arr, eps)
+        sigmas = torch.as_tensor(engine.discretization(50), device=dev)
+        x50 = SP.init_latent(torch.randn(shape, generator=g, device=dev), sigmas)
+        exact = SP.sample_euler_edm(engine.make_denoise_fn(c, uc, 4.0), x50, sigmas)
+        allkey = SP.sample_euler_edm_encprop(*engine.make_denoise_fns_encprop(c, uc, 4.0), x50,
+                                             sigmas, SP.uniform_key_mask(50, 1))
+    log(f"[sampling] (b) all-key encoder propagation against sample_euler_edm, 50 steps: max "
+        f"|Δ| {float((allkey - exact).abs().max()):.3e}")
+    if not torch.equal(allkey, exact):
+        fail("all-key encoder propagation differs from the exact Euler loop")
+
+    # (c) Predictor(encprop_interval=k) against the exact predictor, interleaved
+    preds = {k: Predictor(engine, num_steps=50, cfg_scale=4.0, noise_iters=10,
+                          noise_search_batched=True, encprop_interval=k) for k in (0, 2, 3)}
+    secs = {k: [] for k in preds}
+    images = {}
+    for _ in range(3):
+        for k, pred in preds.items():
+            reset(*fns)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            images[k], _ = pred(batch, torch.Generator(dev).manual_seed(0))
+            torch.cuda.synchronize()
+            secs[k].append(time.perf_counter() - t0)
+            launches = counts(*fns)
+            n_key = int(SP.uniform_key_mask(50, k).sum()) if k else 50
+            want = evals(2 + n_key, 50 - n_key)  # 2 batched search evals, then the steps
+            if launches != want:
+                fail(f"encprop interval {k}: launches {launches}, the plan predicts {want} "
+                     f"({n_key} key steps)")
+            if k == 2:
+                by_path["encprop"] = launches
+    for k in (2, 3):
+        img = images[k].float()
+        mse = float(((img - images[0].float()) ** 2).mean())
+        if not (torch.isfinite(img).all() and float(img.std()) > 0):
+            fail(f"encprop interval {k}: the image is not finite or is constant")
+        log(f"[sampling] (c) Predictor(encprop_interval={k}) ({size}², 10 candidates, 50 steps, CFG "
+            f"4.0): {statistics.median(secs[k]):.3f} s per sample (median of 3: "
+            f"{[round(v, 3) for v in secs[k]]}) against the exact sampler's "
+            f"{statistics.median(secs[0]):.3f} s ({[round(v, 3) for v in secs[0]]}); "
+            f"{int(SP.uniform_key_mask(50, k).sum())} key steps; PSNR against the exact image "
+            f"{10 * np.log10(1.0 / max(mse, 1e-12)):.2f} dB (random weights: printed, not "
+            f"gated); launches {by_path['encprop'] if k == 2 else launches}")
+    profile_groups("encprop interval 2, one sample",
+                   lambda: preds[2](batch, torch.Generator(dev).manual_seed(0)),
+                   statistics.median(secs[2]))
+    del preds, images
+
+    # (d) the quality script's report and the gate, for a checkpoint file
+    saved_env = os.environ.get("UDIFFTEXT_ENCPROP_REPORTS")
+    with tempfile.TemporaryDirectory(prefix="udt_encprop_") as rep_dir:
+        os.environ["UDIFFTEXT_ENCPROP_REPORTS"] = rep_dir
+        fake = os.path.join(rep_dir, "fake.ckpt")
+        with open(fake, "wb") as f:
+            f.write(np.random.RandomState(14).bytes(1 << 20))
+        cid = encprop_gate.ckpt_file_id(fake)
+        kw = dict(num_steps=50, cfg_scale=4.0, noise_iters=10, ckpt_id=cid)
+        try:
+            Predictor(engine, encprop_interval=2, **kw)
+            fail("the gate admitted encprop for a checkpoint with no report")
+        except RuntimeError as e:
+            if "no quality report" not in str(e):
+                raise
+        t0 = time.perf_counter()
+        res = encprop_quality.run(TEXTDESIGN_SD_2, steps=50, intervals=(2, 3), size=size,
+                                  scale=4.0, report_id=cid, device=str(dev))
+        quality_s = time.perf_counter() - t0
+        default = encprop_gate.DEFAULT_MIN_PSNR
+        verdicts = {}
+        for k in (2, 3):
+            # the report passes the gate at its own PSNR; the default gate
+            # passes it or refuses it as that PSNR says
+            psnr = res["intervals"][str(k)]["psnr"]
+            Predictor(engine, encprop_interval=k, min_quality_psnr=min(default, psnr), **kw)
+            try:
+                Predictor(engine, encprop_interval=k, **kw)
+                verdicts[k] = "passed"
+            except RuntimeError as e:
+                verdicts[k] = "refused" if "below the" in str(e) else str(e)
+            if verdicts[k] != ("passed" if psnr >= default else "refused"):
+                fail(f"interval {k} at {psnr} dB: the default gate {verdicts[k]}")
+        log(f"[sampling] (d) encprop_quality.run for checkpoint {cid} in {quality_s:.1f} s: "
+            f"{res['intervals']}; without the report the gate refused, with it the gate passed "
+            f"at each interval's PSNR and at the default {default} dB {verdicts}")
+        if not (res["report_path"] and os.path.exists(res["report_path"])):
+            fail(f"the quality script wrote no report: {res}")
+    if saved_env is None:
+        os.environ.pop("UDIFFTEXT_ENCPROP_REPORTS")
+    else:
+        os.environ["UDIFFTEXT_ENCPROP_REPORTS"] = saved_env
+    del res
+    torch.cuda.empty_cache()
+
+    # (e) the other samplers, 5 steps, kernels against attn_impl="plain" on the
+    # same weights and draws
+    sig5 = torch.as_tensor(engine.discretization(5), device=dev)
+    x5 = SP.init_latent(torch.randn(shape, generator=g, device=dev), sig5)
+    draws = [torch.randn(shape, generator=g, device=dev) for _ in range(5)]
+    churn = SP.EDMStochasticParams(s_churn=1.0)
+    samplers = (  # (name, sampler, UNet evals)
+        ("heun_edm", lambda d: SP.sample_heun_edm(d, x5, sig5), 9),
+        ("euler_ancestral", lambda d: SP.sample_euler_ancestral(d, x5, sig5, noise=draws), 5),
+        ("dpmpp2s_ancestral", lambda d: SP.sample_dpmpp2s_ancestral(d, x5, sig5, noise=draws), 9),
+        ("dpmpp2m", lambda d: SP.sample_dpmpp2m(d, x5, sig5), 5),
+        ("lms", lambda d: SP.sample_lms(d, x5, sig5), 5),
+        ("euler_edm_churn", lambda d: SP.sample_euler_edm(d, x5, sig5, churn, noise=draws), 5),
+    )
+    with torch.no_grad():
+        den = engine.make_denoise_fn(c, uc, 4.0)
+        pc, puc = plain_engine.conditionings(arr, eps)
+        plain_den = plain_engine.make_denoise_fn(pc, puc, 4.0)
+        total = dict.fromkeys(evals(0), 0)
+        for name, sampler, n_evals in samplers:
+            reset(*fns)
+            z = sampler(den)
+            torch.cuda.synchronize()
+            launches = counts(*fns)
+            z_plain = sampler(plain_den)
+            err = rel_l2(z, z_plain)
+            log(f"[sampling] (e) {name}, 5 steps: {n_evals} UNet evals, launches {launches}; "
+                f"relative L2 against attn_impl='plain' {err:.3e} (tol {tol:.0e})")
+            if launches != evals(n_evals):
+                fail(f"{name} launched {launches}, {n_evals} UNet evals predict {evals(n_evals)}")
+            if not (torch.isfinite(z).all() and err <= tol):
+                fail(f"{name} is not finite or disagrees with its attn_impl='plain' run")
+            total = {k_: total[k_] + n for k_, n in launches.items()}
+    by_path["samplers"] = total
 
 
 def main() -> None:
@@ -1414,7 +1644,14 @@ def main() -> None:
         f"feed-forwards {best['ff_plain']:.3f} s (the faster of two runs each after a warm-up; "
         f"all runs: " + ", ".join(f"{k} {[round(t, 3) for t in v]}" for k, v in ab_s.items())
         + "); zero kernel launches under 'plain'")
-    del plain_bundle, eval_outs, x_ab, ctx_ab, images_ab, eng, short, ffs
+    del eval_outs, x_ab, ctx_ab, images_ab, eng, short, ffs
+    torch.cuda.empty_cache()
+
+    # 14. the sampling options: encoder propagation, its quality gate and the
+    # other samplers, on phase 5's engine and batch
+    sampling_options(bundle.engine, plain_bundle.engine, batch, kernel_fns, expected, by_path,
+                     ab_tol)
+    del plain_bundle
     torch.cuda.empty_cache()
 
     # 7. the demo flow with attend-and-excite and middle-step map capture

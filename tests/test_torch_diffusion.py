@@ -1,6 +1,7 @@
 """The port's diffusion math against the JAX build: schedules, the discrete
-denoiser, classifier-free guidance (with its raise), the Euler-EDM loop and
-the min-local attention loss. fp32; tolerance 1e-5 relative."""
+denoiser, classifier-free guidance (with its raise), the Euler-EDM loop
+(with churn) and the min-local attention loss. fp32; tolerance 1e-5
+relative."""
 
 import jax
 import jax.numpy as jnp
@@ -105,8 +106,20 @@ def test_sample_euler_edm_matches():
     assert_close(PS.to_d(T(x), T(sigmas[:2]), T(target)),
                  JS.to_d(jnp.asarray(x), jnp.asarray(sigmas[:2]), jnp.asarray(target)),
                  RTOL, ATOL, "to_d")
-    with pytest.raises(NotImplementedError, match="churn"):
-        PS.sample_euler_edm(pden, T(x), T(sigmas), s_churn=1.0)
+    # stochastic churn on the JAX sampler's own draws (one split a step)
+    params = JS.EDMStochasticParams(s_churn=1.0, s_noise=1.1)
+    key = jax.random.PRNGKey(7)
+    draws = []
+    for _ in range(len(sigmas) - 1):
+        key, sub = jax.random.split(key)
+        draws.append(T(np.asarray(jax.random.normal(sub, x.shape))))
+    x0 = JS.init_latent(jnp.asarray(x), jnp.asarray(sigmas))
+    want = JS.sample_euler_edm(jden, x0, jnp.asarray(sigmas), params, jax.random.PRNGKey(7))
+    got = PS.sample_euler_edm(pden, PS.init_latent(T(x), T(sigmas)), T(sigmas),
+                              PS.EDMStochasticParams(s_churn=1.0, s_noise=1.1), noise=draws)
+    assert_close(got, want, RTOL, 1e-5, "euler with churn")
+    assert not np.allclose(np.asarray(want), np.asarray(JS.sample_euler_edm(jden, x0,
+                                                                             jnp.asarray(sigmas))))
 
 
 def _maps(b, seq, seed):

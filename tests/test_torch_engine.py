@@ -162,11 +162,16 @@ def test_predictor_float_batch_and_search_choice(engines, monkeypatch):
     assert seen == [True, False]
 
 
-def test_unported_options_raise(engines):
+def test_unported_options_raise(engines, tmp_path, monkeypatch):
     _, _, pe = engines
     nb = U.numpy_batch(1)
-    with pytest.raises(NotImplementedError, match="encoder-propagation"):
-        Predictor(pe, encprop_interval=2)
+    # encoder propagation is ported: it builds, and the quality gate refuses
+    # a checkpoint that has no report
+    monkeypatch.setenv("UDIFFTEXT_ENCPROP_REPORTS", str(tmp_path / "reports"))
+    monkeypatch.delenv("UDIFFTEXT_ENCPROP_UNGATED", raising=False)
+    assert Predictor(pe, encprop_interval=2).encprop_interval == 2
+    with pytest.raises(RuntimeError, match="no quality report"):
+        Predictor(pe, encprop_interval=2, ckpt_id="0123456789abcdef")
     # the uint8 wire format's contract: a mask and no masked
     u8 = {**nb, "image": (nb["image"] * 0).astype(np.uint8)}
     with pytest.raises(ValueError, match="requires a 'mask'"):
@@ -221,6 +226,14 @@ for batched in (True, False):
 img, aux = predict.Predictor(bundle.engine, num_steps=2, noise_iters=0, aae_enabled=True,
                              detailed=True)(batch, torch.Generator().manual_seed(0))
 assert bool(torch.isfinite(aux["local_losses"]).all())
+# encoder propagation through the predictor, and the quality script writing its report
+from udifftext_tpu_torch.scripts import encprop_quality
+os.environ["UDIFFTEXT_ENCPROP_REPORTS"] = os.path.join(sys.argv[2], "reports")
+img, _ = predict.Predictor(bundle.engine, num_steps=3, noise_iters=1, encprop_interval=2)(
+    batch, torch.Generator().manual_seed(0))
+assert bool(torch.isfinite(img).all())
+assert encprop_quality.run(json.loads(sys.argv[1]), steps=2, intervals=(2,), size=32,
+                           report_id="tiny", device="cpu")["report_path"]
 batch["seg"] = np.zeros((1, 32, 32, 12), np.float32)
 state = train.train({"lightning": {"max_epochs": 1}, "log_dir": sys.argv[2]}, [batch], bundle,
                     seed=0)
@@ -269,10 +282,11 @@ print(json.dumps(bad))
 
 
 def test_port_never_imports_jax(tmp_path):
-    """Sampling (plain and AAE), one training step, the train and eval CLIs'
-    entry functions, the three probes, the demo CLI, a checkpoint load and
-    the serving benchmark in a fresh process leave jax, flax and the JAX
-    package out of sys.modules."""
+    """Sampling (plain, AAE and encoder propagation), the encprop quality
+    script, one training step, the train and eval CLIs' entry functions, the
+    three probes, the demo CLI, a checkpoint load and the serving benchmark
+    in a fresh process leave jax, flax and the JAX package out of
+    sys.modules."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)
     res = subprocess.run(

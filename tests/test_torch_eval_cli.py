@@ -299,11 +299,15 @@ def test_eval_cli_matches_jax_test(workspace, parseq_file, capsys):  # noqa: F81
     assert _files(workspace / "port" / "temp") == []
 
 
-def test_eval_cli_aae_detailed_and_options(workspace, capsys):  # noqa: F811
+def test_eval_cli_aae_detailed_and_options(workspace, capsys, tmp_path,  # noqa: F811
+                                           monkeypatch):
     """Attend-and-excite and map capture write the GIF, the map grid and the
     segment map; a missing PARSeq file disables OCR with the JAX message;
-    quan_test, eval_data_parallel without a process group and encprop
-    raise; a second run wipes the first one's files."""
+    quan_test and eval_data_parallel without a process group raise, and
+    encprop is refused for a checkpoint with no quality report; a second
+    run wipes the first one's files."""
+    monkeypatch.setenv("UDIFFTEXT_ENCPROP_REPORTS", str(tmp_path / "reports"))
+    monkeypatch.delenv("UDIFFTEXT_ENCPROP_UNGATED", raising=False)
     from udifftext_tpu_torch.data.loader import get_dataloader
     from udifftext_tpu_torch.loading import init_model, init_sampling
 
@@ -326,8 +330,16 @@ def test_eval_cli_aae_detailed_and_options(workspace, capsys):  # noqa: F811
         port_test.test(bundle, sampler, [], dict(cfgs, quan_test=True))
     with pytest.raises(RuntimeError, match="torchrun"):
         port_test.test(bundle, sampler, [], dict(cfgs, eval_data_parallel=True))
-    with pytest.raises(NotImplementedError, match="encoder-propagation"):
-        port_test.make_predictor(dict(cfgs, encprop_interval=2), bundle, sampler)
+    # encprop: the interval reaches the predictor, gated on load_ckpt_path's
+    # checkpoint, which has no quality report
+    ckpt = tmp_path / "fake.ckpt"
+    ckpt.write_bytes(b"weights")
+    pred = port_test.make_predictor(dict(cfgs, encprop_interval=2, load_ckpt_path=None), bundle,
+                                    sampler)
+    assert pred.encprop_interval == 2
+    with pytest.raises(RuntimeError, match="no quality report"):
+        port_test.make_predictor(dict(cfgs, encprop_interval=2, load_ckpt_path=str(ckpt)), bundle,
+                                 sampler)
 
 
 def test_eval_cli_entry(workspace, tmp_path):  # noqa: F811

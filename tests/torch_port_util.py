@@ -78,6 +78,26 @@ def load_port(module: torch.nn.Module, state_dict) -> torch.nn.Module:
     return module.eval()
 
 
+def tiny_unet_pair(seed: int = 9):
+    """tests/test_sampling.py's tiny UNet (4 channels in, 8², one attention
+    level, context dim 8) in both packages with every parameter seeded
+    random, the zero-initialized output conv included (zero, it would make
+    any two samplers agree): (JAX module, its params, port module, a (2, 3,
+    8) context)."""
+    from udifftext_tpu.models.unet import UNetModel as JUNet
+    from udifftext_tpu_torch.models.unet import UNetModel as PUNet
+    from udifftext_tpu_torch.utils import convert
+
+    kw = dict(in_channels=4, out_channels=4, model_channels=32, num_res_blocks=1,
+              attention_resolutions=(2,), channel_mult=(1, 2), num_head_channels=8, t_context_dim=8)
+    junet = JUNet(**kw, attn_impl="xla")
+    params = flax_params(junet, seed, jnp.zeros((2, 8, 8, 4)), jnp.zeros((2,)),
+                         jnp.zeros((2, 3, 8)))
+    punet = load_port(PUNet(**kw), convert.unet_from_jax(params))
+    ctx = np.random.RandomState(seed).standard_normal((2, 3, 8)).astype(np.float32)
+    return junet, params, punet, ctx
+
+
 def numpy_batch(b: int = 1, seed: int = 0) -> Dict[str, np.ndarray]:
     rs = np.random.RandomState(seed)
     mask = np.zeros((b, IMG, IMG, 1), np.float32)

@@ -20,7 +20,8 @@ from torch import nn
 
 from .diffusion.denoiser import DiscreteDenoiser
 from .diffusion.loss import FullLossConfig
-from .diffusion.schedules import DiscreteSampling, LegacyDDPMDiscretization
+from .diffusion.schedules import (SCALINGS, WEIGHTINGS, Discretization, DiscreteSampling,
+                                  EDMDiscretization, LegacyDDPMDiscretization)
 from .engine import DiffusionEngine
 from .models.label_encoder import LabelEncoder
 from .models.layers import GroupNorm32, cast_weights
@@ -140,6 +141,11 @@ TEXTDESIGN_SD_2_TRAIN: Dict[str, Any] = copy.deepcopy(TEXTDESIGN_SD_2)
 class SamplerSettings:
     num_steps: int = 50
     cfg_scale: float = 5.0
+    # Euler-EDM churn (`sampling.EDMStochasticParams`), the JAX build's defaults
+    s_churn: float = 0.0
+    s_tmin: float = 0.0
+    s_tmax: float = 999.0
+    s_noise: float = 1.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,6 +168,26 @@ def _params(node: Optional[Dict[str, Any]]) -> Dict[str, Any]:
 def _require(cond: bool, what: str) -> None:
     if not cond:
         raise NotImplementedError(f"model graph: {what} is not ported yet")
+
+
+def build_discretization(node: Optional[Dict[str, Any]]) -> Discretization:
+    """A discretizer node → LegacyDDPMDiscretization (also when the node or
+    its target is absent) or EDMDiscretization, with the node's params."""
+    target = (node or {}).get("target", "")
+    _require(target == "" or target.endswith(("LegacyDDPMDiscretization", "EDMDiscretization")),
+             f"discretization {target!r}")
+    cls = EDMDiscretization if target.endswith("EDMDiscretization") else LegacyDDPMDiscretization
+    return cls(**_params(node))
+
+
+def _tag(node: Optional[Dict[str, Any]], kind: str, known) -> str:
+    """The tag ("eps", "v", "edm", "unit") of a `<Name>Scaling` /
+    `<Name>Weighting` node; "eps" when the node is absent."""
+    target = (node or {}).get("target", f"Eps{kind}")
+    tag = next((name.lower() for name in ("Eps", "V", "EDM", "Unit")
+                if target.endswith(f"{name}{kind}")), None)
+    _require(tag in known, f"{kind.lower()} {target!r}")
+    return tag
 
 
 def _check_embedders(emb_models) -> Dict[str, Any]:
@@ -254,12 +280,12 @@ def _build_engine(model_cfg, unet_dtype, device, train, remat, attn_impl) -> Eng
     )
 
     den_p = _params(p.get("denoiser_config"))
-    for key in ("scaling_config", "weighting_config"):
-        _require("Eps" in (den_p.get(key) or {}).get("target", "Eps"), f"non-eps {key}")
-    for node in (den_p.get("discretization_config"),
-                 _params(p.get("sampler_config")).get("discretization_config")):
-        _require("LegacyDDPM" in (node or {}).get("target", "LegacyDDPM"),
-                 "a discretization other than LegacyDDPM")
+    denoiser = DiscreteDenoiser(
+        scaling=_tag(den_p.get("scaling_config"), "Scaling", SCALINGS),
+        weighting=_tag(den_p.get("weighting_config"), "Weighting", WEIGHTINGS),
+        num_idx=den_p.get("num_idx", 1000),
+        discretization=build_discretization(den_p.get("discretization_config")),
+    )
     loss_p = _params(p.get("loss_fn_config"))
     ocr_enabled = bool(loss_p.get("ocr_enabled", False))
     pred_node = loss_p.get("predictor_config") or {}
@@ -268,16 +294,17 @@ def _build_engine(model_cfg, unet_dtype, device, train, remat, attn_impl) -> Eng
     sig_p = _params(loss_p.get("sigma_sampler_config"))
     _require("DiscreteSampling" in (loss_p.get("sigma_sampler_config") or {}).get(
         "target", "DiscreteSampling"), "a sigma sampler other than DiscreteSampling")
-    _require("LegacyDDPM" in (sig_p.get("discretization_config") or {}).get(
-        "target", "LegacyDDPM"), "a discretization other than LegacyDDPM")
     samp_p = _params(p.get("sampler_config"))
 
     engine = DiffusionEngine(
         unet=cast_weights(unet, unet_dtype, keep_fp32=opt_keys if train else ()),
         vae=cast_weights(vae, vae_dtype),
         label_encoder=label_encoder,
-        denoiser=DiscreteDenoiser(num_idx=den_p.get("num_idx", 1000)),
-        sigma_sampler=DiscreteSampling(num_idx=sig_p.get("num_idx", 1000)),
+        denoiser=denoiser,
+        discretization=build_discretization(samp_p.get("discretization_config")),
+        sigma_sampler=DiscreteSampling(
+            num_idx=sig_p.get("num_idx", 1000),
+            discretization=build_discretization(sig_p.get("discretization_config"))),
         loss_cfg=FullLossConfig(
             kernel_size=loss_p.get("kernel_size", 3),
             gaussian_sigma=loss_p.get("gaussian_sigma", 1.0),

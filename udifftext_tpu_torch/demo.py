@@ -6,7 +6,9 @@
 
 Reads ./configs/demo.yaml (and the model graph it names) like the JAX
 build's demo.py, resizes image and mask to H×W, and runs the predictor with
-the candidate-batched init-noise search. --aae turns on attend-and-excite
+the candidate-batched init-noise search (and, with the config's
+`encprop_interval` > 1, encoder-propagation sampling, gated on the quality
+report of `load_ckpt_path`'s checkpoint). --aae turns on attend-and-excite
 and prints the per-step local losses; --detailed saves the middle step's
 t_attn maps as .npy files under ./temp/attn_map/. The model comes from
 `loading.init_model`: the graph's component checkpoints and the config's
@@ -30,6 +32,7 @@ from .charset import encode_labels
 from .config import load_config
 from .loading import init_model, init_sampling
 from .predict import Predictor
+from .utils.encprop_gate import ckpt_id_if_encprop
 
 
 def _resize(x: np.ndarray, h: int, w: int) -> np.ndarray:
@@ -81,6 +84,8 @@ def main(argv=None) -> None:
     predictor = Predictor(bundle.engine, num_steps=steps, cfg_scale=scale,
                           noise_iters=int(cfgs.get("noise_iters", 10)),
                           aae_enabled=args.aae, detailed=args.detailed,
+                          encprop_interval=int(cfgs.get("encprop_interval", 0)),
+                          ckpt_id=ckpt_id_if_encprop(cfgs),
                           noise_search_batched=bool(cfgs.get("noise_search_batched", True)))
     image = np.asarray(Image.open(args.image).convert("RGB"))
     mask = np.asarray(Image.open(args.mask).convert("L"))

@@ -1,7 +1,8 @@
-"""Classifier-free guidance (port of `udifftext_tpu/diffusion/guiders.py`).
+"""Guiders (port of `udifftext_tpu/diffusion/guiders.py`).
 
 `VanillaCFG` doubles the batch as (uc, c) for the four tensor conditioning
-keys and blends uc + scale·(c − uc) after the network call.
+keys and blends uc + scale·(c − uc) after the network call;
+`IdentityGuider` runs the conditional batch alone and returns it as it is.
 """
 
 from __future__ import annotations
@@ -39,3 +40,12 @@ class VanillaCFG:
     def __call__(self, x: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
         x_u, x_c = x.chunk(2, dim=0)
         return x_u + self.scale * (x_c - x_u)
+
+
+@dataclasses.dataclass(frozen=True)
+class IdentityGuider:
+    def prepare_cond(self, c: Dict[str, Any], uc: Dict[str, Any]) -> Dict[str, Any]:
+        return dict(c)
+
+    def __call__(self, x: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+        return x

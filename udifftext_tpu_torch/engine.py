@@ -13,7 +13,8 @@ UNet.
 `sample` runs the inference path of test.py / demo.py: conditioning (label
 embedding, mask rescale, VAE encode of the masked image), the init-noise
 search (candidates scored by the min-local attention loss after a 2-step
-rollout), the CFG Euler-EDM loop and the VAE decode. With `aae_enabled`,
+rollout), the CFG Euler-EDM loop (or, with `encprop_interval` > 1, its
+approximate encoder-propagation form) and the VAE decode. With `aae_enabled`,
 attend-and-excite descends the latent on the min-local loss through the
 unguided UNet before each step; with `detailed`, the middle step's t_attn
 maps are returned. `log_images` is a training run's image log: inputs, VAE
@@ -35,20 +36,21 @@ from torch import nn
 
 from .conditioning import Conditioner
 from .diffusion import sampling as SP
-from .diffusion.denoiser import DiscreteDenoiser
+from .diffusion.denoiser import Denoiser, DiscreteDenoiser
 from .diffusion.guiders import VanillaCFG
 from .diffusion.loss import FullLossConfig, full_loss, min_local_loss
 from .diffusion.schedules import (
+    Discretization,
     DiscreteSampling,
     LegacyDDPMDiscretization,
     append_dims,
-    eps_scaling,
 )
 from .models.label_encoder import LabelEncoder
 from .models.parseq import PARSeq
 from .models.unet import UNetModel
 from .models.vae import AutoencoderKL, DiagonalGaussian
 from .ocr import ParseqPredictor
+from .utils.encprop_gate import gate_encprop
 
 Batch = Dict[str, torch.Tensor]
 
@@ -77,8 +79,8 @@ class DiffusionEngine(nn.Module):
         unet: UNetModel,
         vae: AutoencoderKL,
         label_encoder: LabelEncoder,
-        denoiser: DiscreteDenoiser = DiscreteDenoiser(),
-        discretization: LegacyDDPMDiscretization = LegacyDDPMDiscretization(),
+        denoiser: Denoiser = DiscreteDenoiser(),
+        discretization: Discretization = LegacyDDPMDiscretization(),
         sigma_sampler: DiscreteSampling = DiscreteSampling(),
         loss_cfg: FullLossConfig = FullLossConfig(),
         scale_factor: float = 0.18215,
@@ -179,14 +181,18 @@ class DiffusionEngine(nn.Module):
     def decode_first_stage(self, z: torch.Tensor) -> torch.Tensor:
         return self.vae.decode(z / self.scale_factor)
 
-    def network(self, capture_attn: bool = False, ctx_kv=None) -> Callable:
-        """The UNet with the conditioning's channel concat in front."""
+    def network(self, capture_attn: bool = False, ctx_kv=None, method=None) -> Callable:
+        """The UNet with the conditioning's channel concat in front; `method`
+        picks another UNet entry point taking no capture_attn
+        (`unet.forward_cached` for encoder propagation)."""
 
         def net(x: torch.Tensor, c_noise: torch.Tensor, cond: Dict[str, Any]):
             if "concat" in cond:
                 x = torch.cat([x, cond["concat"].to(x.dtype)], dim=-1)
-            return self.unet(x, c_noise, cond.get("t_crossattn"), cond.get("v_crossattn"),
-                             capture_attn=capture_attn, ctx_kv=ctx_kv)
+            tc, vc = cond.get("t_crossattn"), cond.get("v_crossattn")
+            if method is not None:
+                return method(x, c_noise, tc, vc, ctx_kv=ctx_kv)
+            return self.unet(x, c_noise, tc, vc, capture_attn=capture_attn, ctx_kv=ctx_kv)
 
         return net
 
@@ -206,6 +212,32 @@ class DiffusionEngine(nn.Module):
             return guider(d, sigma), {k: v[v.shape[0] // 2:] for k, v in aux.items()}
 
         return denoise
+
+    def make_denoise_fns_encprop(self, c, uc, cfg_scale: float):
+        """The (key, reuse) CFG denoiser pair of encoder-propagation sampling
+        (`sampling.sample_euler_edm_encprop`): denoise_full(x, sigma) →
+        (denoised, the UNet's CFG-doubled encoder skip stack);
+        denoise_reuse(x, sigma, stack) → denoised from the middle and output
+        blocks on that stack. The doubled cond dict and its cross-attention
+        K/V are computed once."""
+        guider = VanillaCFG(cfg_scale)
+        c_in = guider.prepare_cond(c, uc)
+        ctx_kv = self.unet.precompute_context_kv(c_in.get("t_crossattn"), c_in.get("v_crossattn"))
+        net_full = self.network(ctx_kv=ctx_kv, method=self.unet.forward_cached)
+
+        def denoise_full(x, sigma):
+            d, hs = self.denoiser(net_full, torch.cat([x, x]), torch.cat([sigma, sigma]), c_in)
+            return guider(d, sigma), hs
+
+        def denoise_reuse(x, sigma, hs):
+            def net(_x, c_noise, cond):
+                return self.unet.decode_cached(hs, c_noise, cond.get("t_crossattn"),
+                                               cond.get("v_crossattn"), ctx_kv=ctx_kv), None
+
+            d, _ = self.denoiser(net, torch.cat([x, x]), torch.cat([sigma, sigma]), c_in)
+            return guider(d, sigma)
+
+        return denoise_full, denoise_reuse
 
     def _rollout_loss(self, denoise, x, sigmas, mask, seg_mask) -> torch.Tensor:
         """Min-local loss (B,) of the last of two Euler steps from x."""
@@ -272,7 +304,7 @@ class DiffusionEngine(nn.Module):
         network = self.network(capture_attn=True, ctx_kv=ctx_kv)
         kernel = torch.as_tensor(self.loss_cfg.kernel, device=x.device)
         sigma_q = self.denoiser.quantize_sigma(sigma)
-        c_noise = eps_scaling(append_dims(sigma_q, x.ndim))[3]
+        c_noise = self.denoiser.scale(append_dims(sigma_q, x.ndim))[3]
         c_noise = self.denoiser.quantize_c_noise(c_noise.reshape(sigma.shape))
 
         def step(xx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -357,6 +389,9 @@ class DiffusionEngine(nn.Module):
         noise: Optional[torch.Tensor] = None,
         return_latents: bool = False,
         latent_hw: Optional[Tuple[int, int]] = None,
+        encprop_interval: int = 0,
+        ckpt_id: Optional[str] = None,
+        encprop_pregated: bool = False,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Text inpainting (test.py predict() semantics) → (images in [0, 1]
         (B, H, W, 3), aux). aux["noise_scores"] holds the search's scores;
@@ -368,7 +403,18 @@ class DiffusionEngine(nn.Module):
         latent_hw: the latent's (h, w), rectangular allowed; by default the
         masked image's size over the VAE's factor. posterior_eps: (B, h, w, 4)
         standard normal; noise: (max(noise_iters, 1), B, h, w, 4) standard
-        normal."""
+        normal.
+
+        encprop_interval > 1 opts into APPROXIMATE encoder-propagation
+        sampling of the steps (the full UNet every encprop_interval-th step
+        only, `uniform_key_mask`); it is ignored under aae_enabled or
+        detailed, which need every step's maps. The request is gated on
+        recorded quality evidence (`utils.encprop_gate.gate_encprop` with
+        `ckpt_id` and the steps and scale) unless the caller gated already
+        (encprop_pregated, as `Predictor` does at construction)."""
+        if encprop_interval > 1 and not encprop_pregated and not (aae_enabled or detailed):
+            gate_encprop(ckpt_id, int(encprop_interval),
+                         settings={"steps": int(num_steps), "scale": float(cfg_scale)})
         b, h, w = batch["masked"].shape[:3]
         if latent_hw is None:
             latent_hw = (h // self.latent_factor, w // self.latent_factor)
@@ -400,6 +446,9 @@ class DiffusionEngine(nn.Module):
                 inters = torch.cat([self.decode_first_stage(f[None]) for f in per_step["inter"]])
                 aux["inters"] = torch.clamp((inters + 1.0) / 2.0, 0.0, 1.0)
                 aux["local_losses"] = per_step["local_loss"]
+        elif encprop_interval > 1:
+            z = SP.sample_euler_edm_encprop(*self.make_denoise_fns_encprop(c, uc, cfg_scale), x,
+                                            sigmas, SP.uniform_key_mask(num_steps, encprop_interval))
         else:
             z = SP.sample_euler_edm(self.make_denoise_fn(c, uc, cfg_scale), x, sigmas)
         if return_latents:

@@ -245,6 +245,39 @@ class UNetModel(nn.Module):
                 h = m(h)
         return h
 
+    def _prepare(self, timesteps, t_context, v_context):
+        emb = self.time_embed(timestep_embedding(timesteps, self.model_channels).to(self.dtype))
+        if t_context is not None:
+            t_context = t_context.to(self.dtype)
+        if v_context is not None:
+            v_context = v_context.to(self.dtype)
+        return emb, t_context, v_context
+
+    def _run_encoder(self, x, emb, t_context, v_context, capture_attn, attn_maps,
+                     ctx_kv) -> List[torch.Tensor]:
+        """Input blocks → the skip activations hs; hs[-1] feeds the middle
+        block."""
+        h = x.to(self.dtype)
+        hs = []
+        for i, (mods, specs) in enumerate(zip(self.input_blocks, self.plan.input_blocks)):
+            h = self._apply_block(f"input_blocks.{i}", mods, specs, h, emb, t_context, v_context,
+                                  capture_attn, attn_maps, ctx_kv)
+            hs.append(h)
+        return hs
+
+    def _run_decoder(self, hs, emb, t_context, v_context, capture_attn, attn_maps,
+                     ctx_kv) -> torch.Tensor:
+        """Middle and output blocks on the skip stack hs (left as it is)."""
+        hs = list(hs)
+        h = self._apply_block("middle_block", self.middle_block, self.plan.middle_block, hs[-1],
+                              emb, t_context, v_context, capture_attn, attn_maps, ctx_kv)
+        for i, (mods, specs) in enumerate(zip(self.output_blocks, self.plan.output_blocks)):
+            h = torch.cat([h, hs.pop()], dim=-1)
+            h = self._apply_block(f"output_blocks.{i}", mods, specs, h, emb, t_context,
+                                  v_context, capture_attn, attn_maps, ctx_kv)
+        h = self.out[2](F.silu(self.out[0](h)))
+        return h.float()
+
     def forward(
         self,
         x: torch.Tensor,
@@ -255,26 +288,38 @@ class UNetModel(nn.Module):
         ctx_kv: Optional[Dict[str, Any]] = None,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """x (B, H, W, in_channels), timesteps (B,) → ((B, H, W, out), maps)."""
-        emb = self.time_embed(timestep_embedding(timesteps, self.model_channels).to(self.dtype))
-        if t_context is not None:
-            t_context = t_context.to(self.dtype)
-        if v_context is not None:
-            v_context = v_context.to(self.dtype)
+        emb, t_context, v_context = self._prepare(timesteps, t_context, v_context)
         attn_maps: Dict[str, torch.Tensor] = {}
-        h = x.to(self.dtype)
-        hs = []
-        blocks = list(self._blocks())
-        n_in = len(self.input_blocks)
-        for prefix, mods, specs in blocks[:n_in]:
-            h = self._apply_block(prefix, mods, specs, h, emb, t_context, v_context,
-                                  capture_attn, attn_maps, ctx_kv)
-            hs.append(h)
-        prefix, mods, specs = blocks[n_in]
-        h = self._apply_block(prefix, mods, specs, h, emb, t_context, v_context,
-                              capture_attn, attn_maps, ctx_kv)
-        for prefix, mods, specs in blocks[n_in + 1:]:
-            h = torch.cat([h, hs.pop()], dim=-1)
-            h = self._apply_block(prefix, mods, specs, h, emb, t_context, v_context,
-                                  capture_attn, attn_maps, ctx_kv)
-        h = self.out[2](F.silu(self.out[0](h)))
-        return h.float(), attn_maps
+        hs = self._run_encoder(x, emb, t_context, v_context, capture_attn, attn_maps, ctx_kv)
+        h = self._run_decoder(hs, emb, t_context, v_context, capture_attn, attn_maps, ctx_kv)
+        return h, attn_maps
+
+    def forward_cached(
+        self,
+        x: torch.Tensor,
+        timesteps: torch.Tensor,
+        t_context: Optional[torch.Tensor] = None,
+        v_context: Optional[torch.Tensor] = None,
+        ctx_kv: Optional[Dict[str, Any]] = None,
+    ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+        """`forward` without map capture that also returns the encoder skip
+        stack, for encoder-propagation sampling ("Faster Diffusion", arXiv
+        2312.09608: encoder features vary little across adjacent noise
+        levels). Pair with `decode_cached`."""
+        emb, t_context, v_context = self._prepare(timesteps, t_context, v_context)
+        hs = self._run_encoder(x, emb, t_context, v_context, False, {}, ctx_kv)
+        return self._run_decoder(hs, emb, t_context, v_context, False, {}, ctx_kv), tuple(hs)
+
+    def decode_cached(
+        self,
+        hs: Tuple[torch.Tensor, ...],
+        timesteps: torch.Tensor,
+        t_context: Optional[torch.Tensor] = None,
+        v_context: Optional[torch.Tensor] = None,
+        ctx_kv: Optional[Dict[str, Any]] = None,
+    ) -> torch.Tensor:
+        """The middle and output blocks only, on a `forward_cached` skip
+        stack with the current timestep's embedding (the approximation of
+        encoder propagation: the input blocks are skipped)."""
+        emb, t_context, v_context = self._prepare(timesteps, t_context, v_context)
+        return self._run_decoder(hs, emb, t_context, v_context, False, {}, ctx_kv)

@@ -21,6 +21,12 @@ and no `masked`. They go to the device as uint8 and are preprocessed there
 with the float path's math (image / 127.5 − 1, mask > 0, masked = image ·
 (1 − mask)); the images come back as uint8, clip(images, 0, 1) · 255
 truncated. Float batches (the demo and eval flows) are untouched.
+
+`encprop_interval` > 1 opts into APPROXIMATE encoder-propagation sampling.
+It is gated once, at construction (`utils.encprop_gate.gate_encprop` with
+`ckpt_id`, `min_quality_psnr` and the predictor's steps and scale): refused
+for a checkpoint with no passing quality report, warned once when the
+checkpoint's identity is unknown (`ckpt_id` None).
 """
 
 from __future__ import annotations
@@ -29,6 +35,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from .utils.encprop_gate import DEFAULT_MIN_PSNR, gate_encprop
 
 # array fields DiffusionEngine.sample consumes; strings stay on the host
 ARRAY_KEYS = ("image", "masked", "mask", "seg", "seg_mask", "label_ids", "r_bbox")
@@ -44,14 +52,19 @@ class Predictor:
         aae_enabled: bool = False,
         detailed: bool = False,
         encprop_interval: int = 0,
+        ckpt_id: Optional[str] = None,
+        min_quality_psnr: Optional[float] = None,
         noise_search_batched: bool = False,
         noise_search_max_rows: int = 160,
     ):
-        if encprop_interval > 1:
-            raise NotImplementedError("encoder-propagation sampling is not ported yet")
         self.engine = engine
         self.num_steps = int(num_steps)
         self.cfg_scale = float(cfg_scale)
+        self.encprop_interval = int(encprop_interval)
+        if self.encprop_interval > 1:
+            gate_encprop(ckpt_id, self.encprop_interval,
+                         DEFAULT_MIN_PSNR if min_quality_psnr is None else float(min_quality_psnr),
+                         settings={"steps": self.num_steps, "scale": self.cfg_scale})
         self.noise_iters = int(noise_iters)
         self.aae_enabled = bool(aae_enabled)
         self.detailed = bool(detailed)
@@ -120,6 +133,7 @@ class Predictor:
             arr, generator, num_steps=self.num_steps, cfg_scale=self.cfg_scale,
             noise_iters=self.noise_iters, aae_enabled=self.aae_enabled, detailed=self.detailed,
             noise_search_batched=batched, posterior_eps=posterior_eps, noise=noise,
+            encprop_interval=self.encprop_interval, encprop_pregated=True,
         )
         if uint8_in:
             images = (images.clamp(0.0, 1.0) * 255.0).to(torch.uint8)

@@ -44,6 +44,7 @@ import torch
 from ..loading import init_model, init_sampling
 from ..predict import Predictor
 from ..serving import InpaintRequest, InpaintService, batch_seed
+from ..utils.encprop_gate import ckpt_id_if_encprop
 
 
 def _b64_image(data_b64: str, mode: str) -> np.ndarray:
@@ -151,6 +152,7 @@ def build_predict_fn(cfgs: Mapping[str, Any], model_cfg: Optional[Mapping[str, A
         cfg_scale=float(scale if scale is not None else sampling.cfg_scale),
         noise_iters=int(cfgs.get("noise_iters", 10)),
         encprop_interval=int(cfgs.get("encprop_interval", 0)),
+        ckpt_id=ckpt_id_if_encprop(cfgs),
         noise_search_batched=noise_search_batched,
     )
     dev = bundle.engine.device

@@ -42,6 +42,7 @@ from .ocr import ParseqPredictor
 from .parallel import dist
 from .predict import Predictor
 from .util import prepare_batch
+from .utils.encprop_gate import ckpt_id_if_encprop
 from .utils.png import write_png
 
 
@@ -68,8 +69,9 @@ def make_predictor(cfgs: Mapping[str, Any], bundle: EngineBundle,
                    sampler: SamplerSettings) -> Predictor:
     """The sampler of the run config: search candidates `noise_iters`
     (default 10; batched only with `noise_search_batched`), attend-and-excite
-    and map capture per `aae_enabled` / `detailed`. `encprop_interval` > 1
-    raises (not ported)."""
+    and map capture per `aae_enabled` / `detailed`, encoder-propagation
+    sampling per `encprop_interval`, gated on the quality report of
+    `load_ckpt_path`'s checkpoint."""
     return Predictor(
         bundle.engine,
         num_steps=sampler.num_steps,
@@ -78,6 +80,7 @@ def make_predictor(cfgs: Mapping[str, Any], bundle: EngineBundle,
         aae_enabled=bool(cfgs.get("aae_enabled", False)),
         detailed=bool(cfgs.get("detailed", False)),
         encprop_interval=int(cfgs.get("encprop_interval", 0)),
+        ckpt_id=ckpt_id_if_encprop(cfgs),
         noise_search_batched=bool(cfgs.get("noise_search_batched", False)),
     )
 
