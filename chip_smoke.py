@@ -504,7 +504,8 @@ def plan_launches(unet, hw: int) -> tuple:
     middle and output blocks) for one bf16 eval at latent size hw² on the
     card, from `unet.plan` and the wrappers' shape gates: a self-attention
     takes the flash kernel where `flash_shape_ok` holds, a feed-forward the
-    GEGLU kernel where its token count is a multiple of 128."""
+    GEGLU kernel where `geglu_shape_ok` holds."""
+    from udifftext_tpu_torch.models.attention import geglu_shape_ok
     from udifftext_tpu_torch.ops.attention import flash_shape_ok
 
     def count(blocks):
@@ -514,7 +515,7 @@ def plan_launches(unet, hw: int) -> tuple:
                 if s.kind == "attn":
                     n = (hw // s.ds) ** 2
                     fl += unet.transformer_depth * flash_shape_ok(n, n, s.dim_head)
-                    ge += unet.transformer_depth * (n % 128 == 0)
+                    ge += unet.transformer_depth * geglu_shape_ok(n)
         return fl, ge
 
     return count(unet.plan.input_blocks), count((unet.plan.middle_block,)

@@ -68,7 +68,7 @@ def _net(xx, c_noise, cd):
 
 
 @pytest.mark.parametrize("scaling", ["eps", "v", "edm"])
-@pytest.mark.parametrize("kind", ["continuous", "discrete_edm", "discrete_ddpm_unquantized"])
+@pytest.mark.parametrize("kind", ["continuous", "discrete_edm", "discrete_ddpm_500"])
 def test_denoisers_match(scaling, kind):
     rs = np.random.RandomState(1)
     x = rs.standard_normal((3, 4, 4, 2)).astype(np.float32)
@@ -81,8 +81,8 @@ def test_denoisers_match(scaling, kind):
         jd = JDDen(scaling, weighting, discretization=JSch.EDMDiscretization())
         pd = PDDen(scaling, weighting, discretization=PSch.EDMDiscretization())
     else:
-        jd = JDDen(scaling, weighting, num_idx=500, quantize_c_noise_flag=False)
-        pd = PDDen(scaling, weighting, num_idx=500, quantize_c_noise_flag=False)
+        jd = JDDen(scaling, weighting, num_idx=500)
+        pd = PDDen(scaling, weighting, num_idx=500)
     want, jaux = jd(_net, jnp.asarray(x), jnp.asarray(sigma), {"concat": jnp.asarray(cond)})
     got, paux = pd(_net, T(x), T(sigma), {"concat": T(cond)})
     U.assert_close(got, want, RTOL, ATOL, "denoised")
@@ -271,5 +271,4 @@ def test_builder_refuses_what_jax_does_not_know():
             "target": P + f"denoiser_weighting.{name}Weighting"}
         assert build_engine(cfg, torch.float32, "cpu").engine.denoiser.weighting == name.lower()
     assert PB.SamplerSettings() == PB.SamplerSettings(**{
-        f: getattr(JB.SamplerSettings(), f) for f in ("num_steps", "cfg_scale", "s_churn", "s_tmin",
-                                                      "s_tmax", "s_noise")})
+        f: getattr(JB.SamplerSettings(), f) for f in ("num_steps", "cfg_scale")})

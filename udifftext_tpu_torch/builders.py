@@ -141,11 +141,6 @@ TEXTDESIGN_SD_2_TRAIN: Dict[str, Any] = copy.deepcopy(TEXTDESIGN_SD_2)
 class SamplerSettings:
     num_steps: int = 50
     cfg_scale: float = 5.0
-    # Euler-EDM churn (`sampling.EDMStochasticParams`), the JAX build's defaults
-    s_churn: float = 0.0
-    s_tmin: float = 0.0
-    s_tmax: float = 999.0
-    s_noise: float = 1.0
 
 
 @dataclasses.dataclass(frozen=True)

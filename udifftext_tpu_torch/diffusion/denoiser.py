@@ -54,11 +54,10 @@ class Denoiser:
 
 @dataclasses.dataclass(frozen=True)
 class DiscreteDenoiser(Denoiser):
-    """Quantized sigma and (with quantize_c_noise_flag) c_noise: the table is
-    ascending, so the index is the DDPM timestep the UNet expects."""
+    """Quantized sigma and c_noise: the table is ascending, so the index is
+    the DDPM timestep the UNet expects."""
 
     num_idx: int = 1000
-    quantize_c_noise_flag: bool = True
     discretization: Discretization = LegacyDDPMDiscretization()
 
     @functools.cached_property
@@ -74,6 +73,4 @@ class DiscreteDenoiser(Denoiser):
         return table[sigma_to_idx(sigma, table)]
 
     def quantize_c_noise(self, c_noise: torch.Tensor) -> torch.Tensor:
-        if self.quantize_c_noise_flag:
-            return sigma_to_idx(c_noise, self._table(c_noise))
-        return c_noise
+        return sigma_to_idx(c_noise, self._table(c_noise))

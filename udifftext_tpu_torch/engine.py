@@ -50,7 +50,6 @@ from .models.parseq import PARSeq
 from .models.unet import UNetModel
 from .models.vae import AutoencoderKL, DiagonalGaussian
 from .ocr import ParseqPredictor
-from .utils.encprop_gate import gate_encprop
 
 Batch = Dict[str, torch.Tensor]
 
@@ -390,8 +389,6 @@ class DiffusionEngine(nn.Module):
         return_latents: bool = False,
         latent_hw: Optional[Tuple[int, int]] = None,
         encprop_interval: int = 0,
-        ckpt_id: Optional[str] = None,
-        encprop_pregated: bool = False,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Text inpainting (test.py predict() semantics) → (images in [0, 1]
         (B, H, W, 3), aux). aux["noise_scores"] holds the search's scores;
@@ -408,13 +405,8 @@ class DiffusionEngine(nn.Module):
         encprop_interval > 1 opts into APPROXIMATE encoder-propagation
         sampling of the steps (the full UNet every encprop_interval-th step
         only, `uniform_key_mask`); it is ignored under aae_enabled or
-        detailed, which need every step's maps. The request is gated on
-        recorded quality evidence (`utils.encprop_gate.gate_encprop` with
-        `ckpt_id` and the steps and scale) unless the caller gated already
-        (encprop_pregated, as `Predictor` does at construction)."""
-        if encprop_interval > 1 and not encprop_pregated and not (aae_enabled or detailed):
-            gate_encprop(ckpt_id, int(encprop_interval),
-                         settings={"steps": int(num_steps), "scale": float(cfg_scale)})
+        detailed, which need every step's maps. The engine does not consult
+        the quality gate: the entry points do (`Predictor` at construction)."""
         b, h, w = batch["masked"].shape[:3]
         if latent_hw is None:
             latent_hw = (h // self.latent_factor, w // self.latent_factor)

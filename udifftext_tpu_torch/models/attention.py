@@ -158,6 +158,11 @@ class _Proj(nn.Module):
 FF_IMPLS = ("auto", "fused", "plain")
 
 
+def geglu_shape_ok(n: int) -> bool:
+    """The token counts `geglu_auto_ok` sends to the fused kernel."""
+    return n % 128 == 0
+
+
 def geglu_auto_ok(x: torch.Tensor) -> bool:
     """The "auto" gate of `GEGLUFeedForward`: the fused kernel for CUDA bf16
     tensors with N % 128 == 0, the plain composition (two cuBLAS products
@@ -175,7 +180,7 @@ def geglu_auto_ok(x: torch.Tensor) -> bool:
     5b: 0.760 s against 0.734 s with only the feed-forwards forced plain,
     inside the spread of repeated runs), the kernel is one launch a call, and
     it keeps the (M, 8·C) hidden out of device memory."""
-    return x.is_cuda and x.dtype == torch.bfloat16 and x.shape[1] % 128 == 0
+    return x.is_cuda and x.dtype == torch.bfloat16 and geglu_shape_ok(x.shape[1])
 
 
 class GEGLUFeedForward(nn.Module):

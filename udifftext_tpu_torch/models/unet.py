@@ -259,8 +259,8 @@ class UNetModel(nn.Module):
         block."""
         h = x.to(self.dtype)
         hs = []
-        for i, (mods, specs) in enumerate(zip(self.input_blocks, self.plan.input_blocks)):
-            h = self._apply_block(f"input_blocks.{i}", mods, specs, h, emb, t_context, v_context,
+        for prefix, mods, specs in list(self._blocks())[:len(self.input_blocks)]:
+            h = self._apply_block(prefix, mods, specs, h, emb, t_context, v_context,
                                   capture_attn, attn_maps, ctx_kv)
             hs.append(h)
         return hs
@@ -269,12 +269,15 @@ class UNetModel(nn.Module):
                      ctx_kv) -> torch.Tensor:
         """Middle and output blocks on the skip stack hs (left as it is)."""
         hs = list(hs)
-        h = self._apply_block("middle_block", self.middle_block, self.plan.middle_block, hs[-1],
-                              emb, t_context, v_context, capture_attn, attn_maps, ctx_kv)
-        for i, (mods, specs) in enumerate(zip(self.output_blocks, self.plan.output_blocks)):
+        h = hs[-1]
+        blocks = list(self._blocks())[len(self.input_blocks):]
+        prefix, mods, specs = blocks[0]
+        h = self._apply_block(prefix, mods, specs, h, emb, t_context, v_context,
+                              capture_attn, attn_maps, ctx_kv)
+        for prefix, mods, specs in blocks[1:]:
             h = torch.cat([h, hs.pop()], dim=-1)
-            h = self._apply_block(f"output_blocks.{i}", mods, specs, h, emb, t_context,
-                                  v_context, capture_attn, attn_maps, ctx_kv)
+            h = self._apply_block(prefix, mods, specs, h, emb, t_context, v_context,
+                                  capture_attn, attn_maps, ctx_kv)
         h = self.out[2](F.silu(self.out[0](h)))
         return h.float()
 

@@ -133,7 +133,7 @@ class Predictor:
             arr, generator, num_steps=self.num_steps, cfg_scale=self.cfg_scale,
             noise_iters=self.noise_iters, aae_enabled=self.aae_enabled, detailed=self.detailed,
             noise_search_batched=batched, posterior_eps=posterior_eps, noise=noise,
-            encprop_interval=self.encprop_interval, encprop_pregated=True,
+            encprop_interval=self.encprop_interval,
         )
         if uint8_in:
             images = (images.clamp(0.0, 1.0) * 255.0).to(torch.uint8)

@@ -92,10 +92,9 @@ def run(model_cfg: Optional[Mapping[str, Any]] = None, ckpt: Optional[str] = Non
 
     def sample(interval: int) -> torch.Tensor:
         # the same posterior and initial noise every time; this run is the
-        # measurement, so it does not consult the gate
+        # measurement, so it goes to the engine, which does not consult the gate
         img, _ = engine.sample(batch, num_steps=steps, cfg_scale=scale, noise_iters=0,
-                               posterior_eps=eps, noise=noise, encprop_interval=interval,
-                               encprop_pregated=True)
+                               posterior_eps=eps, noise=noise, encprop_interval=interval)
         return img.float().cpu()
 
     print(f"encprop quality vs exact — {mode}; steps={steps}")
