@@ -150,9 +150,13 @@ matplotlib, imageio or safetensors). Phases, each printed on its own line:
    file of seeded random weights read by `load_predictor`: every real/,
    fake/ and grid PNG read back (zlib) at its size, the accuracy line,
    700 flash and 1050 GEGLU launches a sample (20 search evals and 50
-   steps); s per sample and peak memory; then one sample with
-   attend-and-excite and map capture through make_predictor → predict →
-   average_attn_maps → save_segment_map;
+   steps); s per sample and peak memory; with quan_test on, the run's FID
+   and LPIPS of fake/ against real/ (the `FID:` and `lpips score:` lines
+   required, finite) through weight files of seeded random weights in
+   pytorch_fid's and lpips' own key layouts that the three
+   UDIFFTEXT_*_WEIGHTS variables name (`write_metric_weights`); then one
+   sample with attend-and-excite and map capture through make_predictor →
+   predict → average_attn_maps → save_segment_map;
 13. the train CLI (udifftext_tpu_torch.train.main): configs/train.yaml's
    run (TRAIN_RUN: batch 16, accumulate 4) at full width on synthetic
    batches, two optimizer steps an epoch for 2 epochs, a checkpoint each
@@ -182,7 +186,32 @@ matplotlib, imageio or safetensors). Phases, each printed on its own line:
    Euler-ancestral, DPM++(2S) ancestral, DPM++(2M), LMS and Euler with churn
    for 5 steps through the engine's CFG denoiser: finite, the UNet evals each
    implies in launches, and within phase 5b's relative-L2 tolerance of the
-   same sampler on the attn_impl="plain" engine with the same draws.
+   same sampler on the attn_impl="plain" engine with the same draws;
+15. LabelEncoder pretraining and the metrics (no kernel on either path; both
+   paths must count 0 launches). (a) configs/pretrain.yaml's model
+   (PRETRAIN_RUN: LabelEncoderPretrain with max_len 12, emb 2048, 8 heads,
+   12 layers, clip 1024, against a frozen ViTSTR-base) at full width with
+   seeded random weights, 5 steps at batch 256 of synthetic 224² label
+   batches (`data.synthetic.SyntheticLabelBatches`) through
+   `pretrain.train` inside phase 13's world-size-1 NCCL group: s per step
+   (median after the first), peak memory, loss and clip_acc per step, all
+   finite; then 20 steps on one fixed batch of 32, whose loss must fall.
+   (c) In that group, the loss of the all-gathered contrastive features and
+   every gradient bit-equal to the plain ones. (b) After the group, one step
+   at batch 16 on the card against the same step on the CPU from the same
+   weights: loss within 1e-4 relative; the gradients within 1e-2 relative
+   L2 (a ReLU input at the rounding level passes its gradient on one side
+   only: each such unit moves the gradient by ≈ 1e-3; their count is
+   printed); each updated parameter within 1e-6 plus what its gradients'
+   disagreement lets Adam's first step differ (up to 2·lr where the
+   gradient is at the rounding level); fp32 throughout (TF32 matmul is off
+   by default; the patch embedding is a matmul, not a cuDNN conv). (d) FIDInceptionV3's pool3
+   features and LPIPSAlex's distances of 8 synthetic 512² images (pairs),
+   card against CPU through the metrics module's loaders and weight files
+   of seeded random weights, within 1e-2 (relative L2; relative for each
+   distance: cuDNN convolutions take TF32 by PyTorch's default, as
+   pytorch_fid's run does), and each extractor's images/s at 512². The eval
+   CLI's quan_test run is phase 12's.
 
 Beside every kernel's time stand its plain version's, its bound (the least
 time the card could take: the larger of bytes moved once over 3.35 TB/s and
@@ -193,8 +222,8 @@ never calls it.
 
 Each path (demo, AAE, training, OCR-loss training, glue probe, ResBlock
 probe, variants probe, serving, eval CLI, train CLI, encoder propagation at
-interval 2, the other samplers) runs with the launch counts set to 0 just
-before it and read just after.
+interval 2, the other samplers, pretraining, the metrics) runs with the
+launch counts set to 0 just before it and read just after.
 Any failure exits non-zero. The
 second-to-last line is the kernels' JSON record: each kernel's `launches`
 counts the path named by its `launches_path` (training for the kernels the
@@ -449,7 +478,27 @@ TRAIN_RUN = {
     "lightning": {"max_epochs": 100, "accumulate_grad_batches": 4,
                   "default_root_dir": "./logs/base_logs"},
 }
-EVAL_OVERRIDES = ("load_ckpt_path", "output_dir", "temp_dir", "max_iter",
+PRETRAIN_RUN = {
+    "ckpt_dir": "./checkpoints/encoders/LabelEncoder",
+    "dataset": {"target": "dataset.dataloader.LabelDataset",
+                "params": {"size": 224, "length": 100000, "font_path": None, "min_len": 1,
+                           "max_len": 12}},
+    "model": {"target": "sgm.modules.encoders.modules.LabelEncoder",
+              "params": {"trainable": True, "max_len": 12, "emb_dim": 2048, "n_heads": 8,
+                         "n_trans_layers": 12, "lr": "1e-5", "lambda_cls": 0.1,
+                         "lambda_pos": 0.1,
+                         "visual_config": {
+                             "target": "sgm.modules.encoders.modules.ViTSTREncoder",
+                             "params": {"freeze": True, "ckpt_path":
+                                        "./checkpoints/encoders/ViTSTR/vitstr_base_patch16_224.pth",
+                                        "size": 224, "patch_size": 16, "embed_dim": 768,
+                                        "depth": 12, "num_heads": 12, "mlp_ratio": 4,
+                                        "qkv_bias": True, "in_chans": 1}}}},
+    "num_workers": 0, "batch_size": 256, "check_freq": 5,
+    "lightning": {"max_epochs": 1000, "default_root_dir": "./logs/pre_logs"},
+}
+METRIC_ENV = ("UDIFFTEXT_FID_WEIGHTS", "UDIFFTEXT_LPIPS_WEIGHTS", "UDIFFTEXT_ALEXNET_WEIGHTS")
+EVAL_OVERRIDES = ("load_ckpt_path", "output_dir", "temp_dir", "max_iter", "quan_test",
                   "predictor_config.params.ckpt_path")
 TRAIN_OVERRIDES = ("load_ckpt_path", "save_ckpt_dir", "keep_ckpts", "log_dir", "log_images_freq",
                    "use_ema", "lightning.max_epochs")
@@ -457,11 +506,11 @@ TRAIN_OVERRIDES = ("load_ckpt_path", "save_ckpt_dir", "keep_ckpts", "log_dir", "
 
 def eval_run_config(work_dir: str, parseq_path: str) -> dict:
     """Phase 12's run config: configs/test.yaml with no UDiffText checkpoint
-    (seeded random weights), outputs under `work_dir`, 3 batches, and a
-    PARSeq file of seeded random weights."""
+    (seeded random weights), outputs under `work_dir`, 3 batches, a PARSeq
+    file of seeded random weights, and FID/LPIPS (quan_test) on."""
     cfgs = copy.deepcopy(TEST_RUN)
     cfgs.update(load_ckpt_path=f"{work_dir}/none.ckpt", output_dir=f"{work_dir}/outputs",
-                temp_dir=f"{work_dir}/temp", max_iter=3)
+                temp_dir=f"{work_dir}/temp", max_iter=3, quan_test=True)
     cfgs["predictor_config"]["params"]["ckpt_path"] = parseq_path
     return cfgs
 
@@ -475,6 +524,43 @@ def train_run_config(work_dir: str, max_epochs: int = 2) -> dict:
                 keep_ckpts=1, log_dir=f"{work_dir}/logs", log_images_freq=2, use_ema=True)
     cfgs["lightning"]["max_epochs"] = max_epochs
     return cfgs
+
+
+def write_metric_weights(work_dir: str, seed: int = 0) -> dict:
+    """FIDInceptionV3 and LPIPSAlex of seeded random weights saved in the
+    published files' key layouts: pytorch_fid's Inception (with `AuxLogits`
+    and `fc` entries, which the loader drops), and lpips' lin-only file
+    beside a torchvision AlexNet file (`features.*`, a `classifier` layer),
+    so that all three variables are read. Convolutions are He-scaled (at
+    lecun scale the pool3 features barely depend on the input) and the lin
+    weights non-negative, as lpips' are. Returns the variables naming them."""
+    import torch
+
+    from udifftext_tpu_torch.models.inception import FIDInceptionV3
+    from udifftext_tpu_torch.models.lpips import LPIPSAlex
+
+    gen = torch.Generator().manual_seed(seed)
+    inception, lpips = FIDInceptionV3(), LPIPSAlex()
+    with torch.no_grad():
+        for m in list(inception.modules()) + list(lpips.modules()):
+            if isinstance(m, torch.nn.Conv2d):
+                w = torch.randn(m.weight.shape, generator=gen) * (2 / m.weight[0].numel()) ** 0.5
+                m.weight.copy_(w.abs() if m.out_channels == 1 else w)
+    fid_sd = dict(inception.state_dict(), **{
+        "AuxLogits.fc.weight": torch.zeros(1000, 768), "AuxLogits.fc.bias": torch.zeros(1000),
+        "fc.weight": torch.zeros(1000, 2048), "fc.bias": torch.zeros(1000)})
+    lp_sd = lpips.state_dict()
+    alexnet = {f"features.{k.split('.')[2]}.{k.split('.')[3]}": v for k, v in lp_sd.items()
+               if k.startswith("net.")}
+    alexnet.update({"classifier.6.weight": torch.zeros(1000, 4096),
+                    "classifier.6.bias": torch.zeros(1000)})
+    files = {}
+    for name, sd, file in zip(METRIC_ENV, (fid_sd, {k: v for k, v in lp_sd.items()
+                                                    if k.startswith("lin")}, alexnet),
+                              ("pt_inception-2015-12-05.pth", "lpips_alex.pth", "alexnet.pth")):
+        files[name] = f"{work_dir}/{file}"
+        torch.save(sd, files[name])
+    return files
 
 
 class Tee:
@@ -802,7 +888,8 @@ def main() -> None:
                          capture_output=True, text=True, timeout=60)
     if smi.returncode != 0:
         fail(f"nvidia-smi failed: {smi.stderr}")
-    log(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
     log(f"[torch] {torch.__version__} cuda {torch.version.cuda} "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
@@ -2172,7 +2259,8 @@ def main() -> None:
     # 12. the eval CLI (udifftext_tpu_torch.test): configs/test.yaml's run at
     # full width (CFG 5.0, 50 steps, batch 1, 10 candidates in the sequential
     # search, which test.yaml keeps), 3 synthetic 512² batches with name, label
-    # and r_bbox, OCR through a PARSeq file of seeded random weights
+    # and r_bbox, OCR through a PARSeq file of seeded random weights, then FID
+    # and LPIPS (quan_test) through metrics weight files of seeded random weights
     from udifftext_tpu_torch import test as eval_cli
     from udifftext_tpu_torch.data.loader import collate
     from udifftext_tpu_torch.data.synthetic import synthetic_sample
@@ -2183,6 +2271,7 @@ def main() -> None:
         parseq_path = f"{work}/parseq.pt"
         torch.save(randomize_parameters(PARSeq(), 0).state_dict(), parseq_path)
         cfgs = eval_run_config(work, parseq_path)
+        os.environ.update(write_metric_weights(work))
         bundle = loading.init_model(cfgs, dev, seed=0, model_cfg=TEXTDESIGN_SD_2)
         sampler = loading.init_sampling(cfgs)
         rs_eval = np.random.RandomState(12)
@@ -2202,7 +2291,11 @@ def main() -> None:
         eval_s = time.perf_counter() - t0
         launches = by_path["eval_cli"] = counts(*kernel_fns)
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        for k in METRIC_ENV:
+            os.environ.pop(k)
         accuracy = re.search(r"OCR test completed\. Mean accuracy: (\S+)", tee.text())
+        fid_line = re.search(r"^FID: (\S+)$", tee.text(), re.M)
+        lpips_line = re.search(r"^lpips score: (\S+)$", tee.text(), re.M)
         shapes = {}
         for name in res["names"]:
             for rel in (f"real/{name}.png", f"fake/{name}.png", f"{name}.png"):
@@ -2212,7 +2305,9 @@ def main() -> None:
             f"written files) {[round(x_, 3) for x_ in res['seconds']]}, median "
             f"{statistics.median(res['seconds']):.3f}; {eval_s:.2f} s in all; peak device memory "
             f"{peak:.2f} GiB ({held:.2f} GiB allocated before the run); OCR "
-            f"{res['correct']}/{res['total']}; launches {launches}")
+            f"{res['correct']}/{res['total']}; quan_test: FID {res.get('fid')}, LPIPS "
+            f"{res.get('lpips')} (seeded random Inception and AlexNet: they check the "
+            f"mechanism only); launches {launches}")
         # the sequential search runs 2 UNet evals a candidate, then the 50 steps
         evals = 2 * cfgs["noise_iters"] + cfgs["steps"]
         want = expected(flash_attention=len(loader) * evals * 10,
@@ -2221,6 +2316,11 @@ def main() -> None:
             fail(f"eval CLI launches {launches}, predicted {want} ({evals} UNet evals a sample)")
         if accuracy is None or res["total"] != len(loader):
             fail(f"eval CLI: no accuracy line, or {res['total']} OCR reads of {len(loader)}")
+        scores = (res.get("fid"), res.get("lpips"))
+        if (fid_line is None or lpips_line is None
+                or any(v is None or not np.isfinite(v) for v in scores)):
+            fail(f"eval CLI quan_test: FID line {fid_line}, LPIPS line {lpips_line}, "
+                 f"values {res.get('fid')}, {res.get('lpips')}")
         want_shapes = {rel: (2048 if "/" not in rel else 512, 512, 3) for rel in shapes}
         if res["names"] != [b_["name"][0] for b_ in loader] or shapes != want_shapes:
             fail(f"eval CLI files: {shapes}")
@@ -2390,9 +2490,217 @@ def main() -> None:
                                 geglu_ff=(per_epoch * accum + 20) * 15):
             fail(f"resumed train CLI launches {launches}")
         del state, batches
+    torch.cuda.empty_cache()
+
+    # 15. LabelEncoder pretraining and the metrics. (a) configs/pretrain.yaml's
+    # LabelEncoderPretrain at full width (seeded random weights) against a
+    # frozen ViTSTR-base, 5 steps at batch 256 of synthetic label images
+    # through pretrain.train, inside phase 13's world-size-1 NCCL group (the
+    # contrastive features go through the all-gather); then 20 steps on one
+    # fixed batch of 32, where the loss must fall
+    from udifftext_tpu_torch import metrics, pretrain
+    from udifftext_tpu_torch.data.synthetic import SyntheticLabelBatches
+    from udifftext_tpu_torch.diffusion.loss import clip_contrastive_loss
+    from udifftext_tpu_torch.parallel.dist import all_gather_rows
+
+    pre_cfgs = copy.deepcopy(PRETRAIN_RUN)
+    pre_mp = pre_cfgs["model"]["params"]
+    emb = pre_mp["emb_dim"]
+    label_shape = dict(size=pre_mp["visual_config"]["params"]["size"], max_len=pre_mp["max_len"])
+    pre_b, pre_steps = pre_cfgs["batch_size"], 5
+    pre_batches = SyntheticLabelBatches(pre_steps, pre_b, seed=15, **label_shape)
+    model, visual = pretrain.build_models(pre_cfgs, dev, seed=0)
+    n_model = sum(p_.numel() for p_ in model.parameters()) / 1e6
+    n_visual = sum(p_.numel() for p_ in visual.parameters()) / 1e6
+    reset(*kernel_fns)
+    held = torch.cuda.memory_allocated(dev) / 2**30  # the two models and what earlier phases hold
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pre_state = pretrain.train(pre_cfgs, pre_batches, model, visual, max_steps=pre_steps,
+                               log_every=1)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = by_path["pretrain"] = counts(*kernel_fns)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    rows = pre_state.history
+    step_s = statistics.median(r_["seconds"] for r_ in rows[1:])
+    log(f"[pretrain] {card}: LabelEncoderPretrain ({n_model:.1f} M parameters: max_len "
+        f"{pre_mp['max_len']}, emb {emb}, {pre_mp['n_heads']} heads, {pre_mp['n_trans_layers']} "
+        f"layers, clip 1024; fp32, AdamW with weight decay 1e-4) against a frozen ViTSTR "
+        f"({n_visual:.1f} M), batch {pre_b} of synthetic {label_shape['size']}² label images, "
+        f"{len(rows)} steps in {run_s:.2f} s in a world-size-"
+        f"{torch.distributed.get_world_size()} {torch.distributed.get_backend()} group: s per step "
+        f"{[round(r_['seconds'], 4) for r_ in rows]}, median after the first {step_s:.4f} "
+        f"({pre_b / step_s:.1f} samples/s); loss "
+        f"{[round(r_['loss/full_loss'], 4) for r_ in rows]}; clip_acc "
+        f"{[round(r_['acc/clip_acc'], 4) for r_ in rows]}; peak device memory {peak:.2f} GiB "
+        f"({held:.2f} GiB allocated before the steps); launches {launches}")
+    if launches != expected():
+        fail(f"pretraining launched a kernel: {launches}")
+    if len(rows) != pre_steps or not all(np.isfinite(r_[k_]) for r_ in rows for k_ in r_):
+        fail(f"pretraining: {len(rows)} steps logged, or a value not finite: {rows}")
+    del pre_state, pre_batches
+    fixed = SyntheticLabelBatches(1, 32, seed=16, **label_shape).batches[0]
+    overfit = pretrain.train(pre_cfgs, [fixed], model, visual, max_steps=20, log_every=1).history
+    losses = [r_["loss/full_loss"] for r_ in overfit]
+    log(f"[pretrain] {card}: 20 steps on one fixed batch of 32: loss {losses[0]:.4f} → "
+        f"{losses[-1]:.4f} (min {min(losses):.4f}), clip_acc {overfit[0]['acc/clip_acc']:.4f} "
+        f"→ {overfit[-1]['acc/clip_acc']:.4f}, median s per step "
+        f"{statistics.median(r_['seconds'] for r_ in overfit[1:]):.4f}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fail(f"pretraining does not fit one fixed batch: loss {losses}")
+
+    # 15c. the gathered loss: under the world-size-1 NCCL group, the loss of
+    # the all-gathered features and its gradients equal the plain ones
+    images = torch.as_tensor(fixed["image"][:16]).to(dev)
+    ids = torch.as_tensor(fixed["label_ids"][:16]).to(dev)
+    with torch.no_grad():
+        vis_emb = visual(images)
+    gathered = {}
+    for how in ("plain", "gathered"):
+        model.zero_grad(set_to_none=True)
+        out = model(ids, vis_emb)
+        t_, v_ = out["text_out"], out["visual_out"]
+        if how == "gathered":
+            t_, v_ = all_gather_rows(t_), all_gather_rows(v_)
+        loss, _ = clip_contrastive_loss(t_, v_, out["logit_scale"], out["cls_out"],
+                                        out["pos_out"], ids)
+        loss.backward()
+        gathered[how] = (loss.detach(), [p_.grad.clone() for p_ in model.parameters()])
+    same = bool(torch.equal(gathered["plain"][0], gathered["gathered"][0])) and all(
+        torch.equal(a_, b_) for a_, b_ in zip(gathered["plain"][1], gathered["gathered"][1]))
+    log(f"[pretrain] the gathered contrastive loss in the world-size-"
+        f"{torch.distributed.get_world_size()} {torch.distributed.get_backend()} group: "
+        f"{float(gathered['gathered'][0]):.6f} against the plain {float(gathered['plain'][0]):.6f}, "
+        f"loss and every gradient bit-equal: {same}")
+    if not same:
+        fail("the all-gathered contrastive loss differs from the plain one on one process")
+    del gathered, out, t_, v_, loss
+    model.zero_grad(set_to_none=True)
     torch.distributed.destroy_process_group()
     for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK"):
         os.environ.pop(k)
+    torch.cuda.empty_cache()
+
+    # 15b. one pretraining step on the card against the same step on the CPU
+    # from the same weights (phase 15a's seeded start) on the first 16 rows of
+    # its first batch
+    del model, visual
+    torch.cuda.empty_cache()
+    model, visual = pretrain.build_models(pre_cfgs, dev, seed=0)
+    cpu_model, cpu_visual = copy.deepcopy(model).cpu(), copy.deepcopy(visual).cpu()
+    first = SyntheticLabelBatches(1, 16, seed=15, **label_shape).batches[0]
+    lr = float(pre_mp["lr"])
+    steps, relu_in = {}, {}
+    for where, m_, v_ in (("cuda", model, visual), ("cpu", cpu_model, cpu_visual)):
+        dv = next(m_.parameters()).device
+        hooks = [layer_.linear1.register_forward_hook(
+            lambda mod_, in_, out_, i_=i_, w_=where: relu_in.__setitem__((w_, i_), out_.detach()))
+            for i_, layer_ in enumerate(m_.encoder.encoder.layers)]
+        t0 = time.perf_counter()
+        step = pretrain.make_pretrain_step(m_, v_, pretrain.make_optimizer(m_, lr))
+        loss, parts = step(torch.as_tensor(first["image"]).to(dv),
+                           torch.as_tensor(first["label_ids"]).to(dv))
+        steps[where] = (float(loss), {k_: float(v_) for k_, v_ in parts.items()},
+                        time.perf_counter() - t0)
+        for h_ in hooks:
+            h_.remove()
+    # feed-forward ReLU inputs whose sign the two sides round differently: each
+    # passes its gradient on one side only, and one such unit of 12 × 2048 a
+    # token moves the gradient's relative L2 by ≈ 1e-3 (PERF.md §6)
+    flips = sum(int(((relu_in[("cuda", i_)].cpu() > 0) != (relu_in[("cpu", i_)] > 0)).sum())
+                for i_ in range(len(model.encoder.encoder.layers)))
+    del relu_in
+    # the gradients over every parameter; the updates elementwise, given each
+    # side's gradient: Adam's first step moves an element by lr·g/(|g| + 1e-8)
+    # (and the decay), so where the gradient is at the two sides' rounding
+    # level its direction is theirs to decide, and the two updates may differ
+    # by up to 2·lr·|Δg|/|g| (at most 2·lr); beyond that, 1e-6 for the rounding
+    # of the parameter itself
+    g_diff = g_norm = 0.0
+    beyond = excess = 0
+    for p_gpu, p_cpu in zip(model.parameters(), cpu_model.parameters()):
+        g_gpu, g_cpu = p_gpu.grad.detach().cpu().double(), p_cpu.grad.detach().double()
+        g_diff += float((g_gpu - g_cpu).square().sum())
+        g_norm += float(g_cpu.square().sum())
+        d_ = (p_gpu.detach().cpu().double() - p_cpu.detach().double()).abs()
+        decided = 2 * lr * torch.clamp((g_gpu - g_cpu).abs() / g_cpu.abs().clamp_min(1e-8), max=1)
+        beyond += int((d_ > 1e-6).sum())
+        excess += int((d_ > 1e-6 + decided).sum())
+    grad_err = (g_diff / g_norm) ** 0.5
+    n_el = sum(p_.numel() for p_ in cpu_model.parameters())
+    loss_err = abs(steps["cuda"][0] - steps["cpu"][0]) / abs(steps["cpu"][0])
+    part_err = max(abs(steps["cuda"][1][k_] - v_) for k_, v_ in steps["cpu"][1].items())
+    log(f"[pretrain] one step at batch 16 from the seeded start, card against CPU (fp32 "
+        f"throughout: TF32 matmul is off by default and the patch embedding is a matmul, not a "
+        f"cuDNN conv): loss {steps['cuda'][0]:.6f} / {steps['cpu'][0]:.6f}, relative error "
+        f"{loss_err:.2e} (tolerance 1e-4), the entries' max error {part_err:.2e} (1e-4); "
+        f"gradients' relative L2 over all {n_el} parameters {grad_err:.2e} (tolerance 1e-2: "
+        f"{flips} feed-forward ReLU inputs change sign between the two); "
+        f"updated parameters: {beyond} elements differ by more than 1e-6 (Adam's direction "
+        f"taken from gradients at the rounding level), {excess} by more than their gradients' "
+        f"disagreement allows (tolerance 0); CPU step {steps['cpu'][2]:.2f} s")
+    if loss_err > 1e-4 or part_err > 1e-4 or grad_err > 1e-2 or excess:
+        fail("pretraining step: card and CPU disagree")
+    del model, visual, cpu_model, cpu_visual, step
+    torch.cuda.empty_cache()
+
+    # 15d. the metrics: FIDInceptionV3's pool3 features and LPIPSAlex's
+    # distances of 8 synthetic 512² image pairs on the card against the CPU,
+    # through the metrics module's loaders reading weight files of seeded
+    # random weights; images/s of each at 512² (the eval CLI's quan_test ran in
+    # phase 12)
+    rs_m = np.random.RandomState(17)
+    yy, xx = np.mgrid[0:512, 0:512].astype(np.float32) / 512
+    pics = np.stack([np.clip(0.5 + 0.4 * np.sin(np.stack([xx * f_[0], yy * f_[1],
+                                                          (xx + yy) * f_[2]], -1) * 6)
+                             + 0.05 * rs_m.standard_normal((512, 512, 3)), 0, 1)
+                     for f_ in rs_m.uniform(1, 4, (16, 3))]).astype(np.float32)
+    fake, real = pics[:8], pics[8:]
+    with tempfile.TemporaryDirectory(prefix="udt_metrics_") as work:
+        files = write_metric_weights(work, seed=1)
+        fns = {}
+        for where in ("cpu", dev):
+            fns[str(where)] = (
+                metrics.load_inception_feature_fn(files["UDIFFTEXT_FID_WEIGHTS"], device=where),
+                metrics.load_lpips_distance_fn(files["UDIFFTEXT_LPIPS_WEIGHTS"],
+                                               files["UDIFFTEXT_ALEXNET_WEIGHTS"], device=where))
+    feats_cpu = fns["cpu"][0](fake)
+    dists_cpu = np.array([fns["cpu"][1](a_, b_) for a_, b_ in zip(fake, real)])
+    feature_fn, distance_fn = fns[str(dev)]
+    reset(*kernel_fns)
+    feats = feature_fn(fake)
+    dists = np.array([distance_fn(a_, b_) for a_, b_ in zip(fake, real)])
+    fid_s, lpips_s = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        feature_fn(real)
+        fid_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        for a_, b_ in zip(fake, real):
+            distance_fn(a_, b_)
+        lpips_s.append(time.perf_counter() - t0)
+    launches = by_path["metrics"] = counts(*kernel_fns)
+    feat_err = rel_l2(torch.from_numpy(feats), torch.from_numpy(feats_cpu))
+    spread = float(np.abs(feats_cpu - feats_cpu.mean(0)).max() / np.abs(feats_cpu).max())
+    dist_err = float(np.max(np.abs(dists - dists_cpu) / np.abs(dists_cpu)))
+    fid_ms, lpips_ms = statistics.median(fid_s), statistics.median(lpips_s)
+    log(f"[metrics] {card}: pool3 features of 8 images (512² → 299²), card against CPU: "
+        f"relative L2 {feat_err:.2e} (tolerance 1e-2: cuDNN convolutions take TF32 by "
+        f"PyTorch's default, as pytorch_fid's run does; the features' spread across images "
+        f"{spread:.3f} of their largest value); LPIPS of 8 pairs at 512²: "
+        f"{[round(float(d_), 5) for d_ in dists]}, max relative error {dist_err:.2e} "
+        f"(tolerance 1e-2); FID extractor {8 / fid_ms:.1f} images/s (batches of 8, median of "
+        f"5: {fid_ms * 1e3:.1f} ms a batch, host to host); LPIPS {8 / lpips_ms:.1f} pairs/s "
+        f"({16 / lpips_ms:.1f} images/s, one pair a call as calc_lpips calls it); "
+        f"launches {launches}")
+    if launches != expected():
+        fail(f"the metrics launched a kernel: {launches}")
+    if (feats.shape != (8, 2048) or not np.isfinite(feats).all() or feat_err > 1e-2
+            or spread < 1e-3 or not np.isfinite(dists).all() or dist_err > 1e-2):
+        fail(f"metrics: features {feats.shape}, relative L2 {feat_err}, distances {dists}")
+    del fns, feature_fn, distance_fn
     torch.cuda.empty_cache()
 
     kernels = []

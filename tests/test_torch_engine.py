@@ -246,6 +246,24 @@ res = eval_cli.test(bundle, bundle.sampler, [dict(batch, name=["x"])],
                     {"output_dir": sys.argv[2] + "/out", "temp_dir": sys.argv[2] + "/tmp",
                      "noise_iters": 0, "steps": 1}, seed=0)
 assert res["names"] == ["x"]
+# a pretraining step and the metrics over the eval CLI's files
+from udifftext_tpu_torch import metrics, pretrain
+from udifftext_tpu_torch.data.synthetic import SyntheticLabelBatches
+pcfgs = {"model": {"params": {"max_len": 4, "emb_dim": 16, "n_heads": 2, "n_trans_layers": 1,
+                              "visual_config": {"params": {"size": 16, "patch_size": 8,
+                                                           "embed_dim": 8, "depth": 1,
+                                                           "num_heads": 2}}}},
+         "lightning": {"max_epochs": 1}, "ckpt_dir": sys.argv[2] + "/pre"}
+pstate = pretrain.main(pcfgs, SyntheticLabelBatches(1, 2, size=16, max_len=4), device="cpu",
+                       seed=0, log_every=1)
+assert pstate.step == 1 and np.isfinite(pstate.history[0]["loss/full_loss"])
+for i in range(3):  # the eval CLI's one sample, and two more pairs
+    for d in ("fake", "real"):
+        png.write_png(f"{sys.argv[2]}/out/{d}/{i}.png", np.full((32, 32, 3), 40 * i, np.uint8))
+feature_fn = lambda x: x.reshape(x.shape[0], -1)[:, :8] + np.arange(8)
+assert metrics.calc_fid(sys.argv[2] + "/out/fake", sys.argv[2] + "/out/real",
+                        feature_fn=feature_fn) is not None
+assert metrics.load_lpips_distance_fn(sys.argv[2] + "/none.pth", device="cpu") is None
 glue_fusion_probe.run(batch=1, reps=1, device="cpu", shapes=(("tiny", 8, 64),), ctx_dim=16,
                       dim_head=32, dtype=torch.float32, runs=1)
 assert len(resblock_probe.run(batch=1, channels=32, hw=4, reps=1, runs=1, device="cpu",
@@ -283,7 +301,8 @@ print(json.dumps(bad))
 
 def test_port_never_imports_jax(tmp_path):
     """Sampling (plain, AAE and encoder propagation), the encprop quality
-    script, one training step, the train and eval CLIs' entry functions, the
+    script, one training step, the train and eval CLIs' entry functions, a
+    LabelEncoder pretraining step, the FID of the eval CLI's files, the
     three probes, the demo CLI, a checkpoint load and the serving benchmark
     in a fresh process leave jax, flax and the JAX package out of
     sys.modules."""

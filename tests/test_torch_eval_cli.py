@@ -13,8 +13,8 @@ weights and the JAX engine's own draws injected:
 - the port's `test()` and the JAX `test()` on one ICDAR13 fixture: the same
   file names, the same real/ pixels; the OCR lines with a random PARSeq file;
   attend-and-excite and map capture writing the GIF, the map grid and the
-  segment map; the options that raise; the CLI needing `--device cpu`
-  without a GPU.
+  segment map; quan_test without weights; the options that raise; the CLI
+  needing `--device cpu` without a GPU.
 """
 
 import os
@@ -303,9 +303,10 @@ def test_eval_cli_aae_detailed_and_options(workspace, capsys, tmp_path,  # noqa:
                                            monkeypatch):
     """Attend-and-excite and map capture write the GIF, the map grid and the
     segment map; a missing PARSeq file disables OCR with the JAX message;
-    quan_test and eval_data_parallel without a process group raise, and
-    encprop is refused for a checkpoint with no quality report; a second
-    run wipes the first one's files."""
+    quan_test without weights files prints the JAX "skipped" lines;
+    eval_data_parallel without a process group raises, and encprop is
+    refused for a checkpoint with no quality report; a second run wipes the
+    first one's files."""
     monkeypatch.setenv("UDIFFTEXT_ENCPROP_REPORTS", str(tmp_path / "reports"))
     monkeypatch.delenv("UDIFFTEXT_ENCPROP_UNGATED", raising=False)
     from udifftext_tpu_torch.data.loader import get_dataloader
@@ -326,8 +327,13 @@ def test_eval_cli_aae_detailed_and_options(workspace, capsys, tmp_path,  # noqa:
     temp = workspace / "aae" / "temp"
     assert _files(temp) == ["attn_map/attn_map_0.png", "inters/0.gif", "seg_map/seg_0.npy"]
     assert np.load(temp / "seg_map" / "seg_0.npy").shape == (2, 16, 16)  # "ab", the 16² layer
-    with pytest.raises(NotImplementedError, match="Queue 1 #13"):
-        port_test.test(bundle, sampler, [], dict(cfgs, quan_test=True))
+    # quan_test without the metrics' weights: each metric skipped with the JAX message
+    for name in ("UDIFFTEXT_FID_WEIGHTS", "UDIFFTEXT_LPIPS_WEIGHTS"):
+        monkeypatch.setenv(name, str(tmp_path / "absent.pth"))
+    res = port_test.test(bundle, sampler, [], dict(cfgs, quan_test=True))
+    out = capsys.readouterr().out
+    assert res["fid"] is None and res["lpips"] is None
+    assert "FID skipped" in out and "LPIPS skipped" in out
     with pytest.raises(RuntimeError, match="torchrun"):
         port_test.test(bundle, sampler, [], dict(cfgs, eval_data_parallel=True))
     # encprop: the interval reaches the predictor, gated on load_ckpt_path's

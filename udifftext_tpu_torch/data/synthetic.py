@@ -1,5 +1,7 @@
 """Synthetic seg-capable training batches made from a seed, for runs that
-have no dataset on disk (the GPU smoke test, the OCR-step probe).
+have no dataset on disk (the GPU smoke test, the OCR-step probe), and
+synthetic LabelEncoder pretraining batches (`SyntheticLabelBatches`), which
+need no font and no Pillow.
 
 Each sample has the fields a scene-text dataset gives (loader.collate's
 input): a smooth image with noise in [-1, 1], a text-box mask (1 inside,
@@ -16,6 +18,7 @@ from typing import Any, Dict, List
 
 import numpy as np
 
+from ..charset import CHARSET
 from .loader import collate
 
 WORD_CHARS = list("ABCDEFGHabcdefgh0123")
@@ -52,6 +55,45 @@ class SyntheticBatches:
         rs = np.random.RandomState(seed)
         self.batches: List[Dict[str, Any]] = [
             collate([synthetic_sample(rs, size, seq) for _ in range(b)], seq) for _ in range(n)]
+
+    def __len__(self) -> int:
+        return len(self.batches)
+
+    def __iter__(self):
+        return iter(self.batches)
+
+
+def glyph_table() -> np.ndarray:
+    """(len(CHARSET), 7, 6): a fixed 7×5 bit pattern for each character of
+    the charset, the same in every run, and a blank column after it."""
+    bits = np.random.RandomState(0).rand(len(CHARSET), 7, 5) < 0.5
+    return np.pad(bits.astype(np.float32), ((0, 0), (0, 0), (0, 1)))
+
+
+def synthetic_label_sample(rs: np.random.RandomState, glyphs: np.ndarray, size: int = 224,
+                           max_len: int = 12) -> Dict[str, Any]:
+    """`LabelDataset`'s item without rendering a font: a random string of 1
+    to max_len characters of the charset and a grayscale (size, size, 1)
+    image in [0, 1] of the string's `glyphs` side by side (white on black),
+    stretched over the image by nearest-neighbour sampling."""
+    ids = rs.randint(0, len(CHARSET), rs.randint(1, max_len + 1))
+    strip = np.concatenate(glyphs[ids], axis=1)
+    rows = np.arange(size) * strip.shape[0] // size
+    cols = np.arange(size) * strip.shape[1] // size
+    return {"image": strip[rows[:, None], cols][..., None],
+            "text": "".join(CHARSET[i] for i in ids)}
+
+
+class SyntheticLabelBatches:
+    """`n` collated pretraining batches of `b` synthetic samples ("image"
+    (b, size, size, 1), "text", "label_ids" (b, max_len)), as the
+    `DataLoader` of a `LabelDataset` yields them; sized and re-iterable."""
+
+    def __init__(self, n: int, b: int, size: int = 224, max_len: int = 12, seed: int = 0):
+        rs, glyphs = np.random.RandomState(seed), glyph_table()
+        self.batches: List[Dict[str, Any]] = [
+            collate([synthetic_label_sample(rs, glyphs, size, max_len) for _ in range(b)],
+                    max_len) for _ in range(n)]
 
     def __len__(self) -> int:
         return len(self.batches)

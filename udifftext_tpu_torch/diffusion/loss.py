@@ -1,7 +1,8 @@
 """Training and guidance losses (port of `udifftext_tpu/diffusion/loss.py`):
 the local attention loss of fine-tuning, the min-local loss that scores
 init-noise candidates and drives attend-and-excite, the weighted diffusion
-loss and their sum with the optional OCR term, `full_loss`.
+loss and their sum with the optional OCR term, `full_loss`; and the
+LabelEncoder pretraining loss, `clip_contrastive_loss`.
 
 Layouts (NHWC): seg (B, H, W, L); mask (B, H, W, 1); seg_mask (B, L);
 attention maps {name: (B, heads, N, L')} with N = h·w.
@@ -162,3 +163,43 @@ def full_loss(cfg: FullLossConfig, denoiser, network: Callable, cond: Dict[str, 
         loss = loss + cfg.lambda_ocr_loss * o_loss
         parts["loss/ocr_loss"] = o_loss
     return loss, {**parts, "loss/full_loss": loss}
+
+
+def clip_contrastive_loss(text_out: torch.Tensor, visual_out: torch.Tensor,
+                          logit_scale: torch.Tensor, cls_out: torch.Tensor, pos_out: torch.Tensor,
+                          cls_target: torch.Tensor, lambda_cls: float = 0.1,
+                          lambda_pos: float = 0.1) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """LabelEncoder pretraining loss: the symmetric contrastive CE over
+    exp(logit_scale)·v̂·t̂ᵀ, whose targets are the diagonal, plus λ_cls times
+    the character CE of cls_out (B, L, 95) against cls_target (B, L) and
+    λ_pos times the position CE of pos_out (B, L, L). text_out and
+    visual_out (N, D) may hold the rows of every process (N ≥ B,
+    `parallel.dist.all_gather_rows`): the similarity matrix is then the
+    global batch's. Returns (loss, {loss/clip_loss, loss/cls_loss,
+    loss/pos_loss, loss/full_loss, acc/clip_acc, acc/cls_acc, acc/pos_acc})."""
+    b, l = cls_target.shape
+    t = text_out / text_out.norm(dim=1, keepdim=True)
+    v = visual_out / visual_out.norm(dim=1, keepdim=True)
+    logits_per_image = logit_scale.exp() * (v @ t.T)
+    logits_per_text = logits_per_image.T
+    clip_target = torch.arange(text_out.shape[0], device=text_out.device)
+    clip_loss = 0.5 * (F.cross_entropy(logits_per_image.float(), clip_target)
+                       + F.cross_entropy(logits_per_text.float(), clip_target))
+    cls_target = cls_target.long()
+    cls_loss = F.cross_entropy(cls_out.float().flatten(0, 1), cls_target.flatten())
+    pos_target = torch.arange(l, device=pos_out.device).expand(b, l)
+    pos_loss = F.cross_entropy(pos_out.float().flatten(0, 1), pos_target.flatten())
+    loss = clip_loss + lambda_cls * cls_loss + lambda_pos * pos_loss
+
+    def acc(logits, target):
+        return (logits.argmax(-1) == target).float().mean()
+
+    return loss, {
+        "loss/clip_loss": clip_loss,
+        "loss/cls_loss": cls_loss,
+        "loss/pos_loss": pos_loss,
+        "loss/full_loss": loss,
+        "acc/clip_acc": acc(logits_per_text, clip_target),
+        "acc/cls_acc": acc(cls_out, cls_target),
+        "acc/pos_acc": acc(pos_out, pos_target),
+    }

@@ -5,11 +5,16 @@ post-LN transformer encoder layers with torch's `nn.TransformerEncoderLayer`
 semantics (packed in-projection, residual then norm, ReLU feed-forward).
 Parameter names are the reference checkpoint's (`label_embedding.weight`,
 `encoder.layers.0.self_attn.in_proj_weight`, `...linear1.weight`, …).
+
+`LabelEncoderPretrain` adds the pretraining heads around it (cls, pos, and
+the text/visual projections into the contrastive space, with the learned
+logit scale); the loss is `diffusion.loss.clip_contrastive_loss`.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -17,7 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..charset import NUM_CLASSES
-from .layers import Dense
+from .layers import Dense, lecun_normal_
 
 
 def sinusoidal_positional_encoding(max_len: int, d_model: int) -> np.ndarray:
@@ -95,3 +100,73 @@ class LabelEncoder(nn.Module):
         for layer in self.encoder.layers:
             x = layer(x)
         return x
+
+
+class InstanceNorm(nn.Module):
+    """torch `InstanceNorm1d(max_len)` as the reference applies it to
+    (B, L, D): each token normalized over its D features (biased variance),
+    no affine."""
+
+    def __init__(self, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x, x.shape[-1:], eps=self.eps)
+
+
+class TokenMix(nn.Module):
+    """The reference's `Conv1d(n_tokens, 1, kernel_size=1)` over (B, L, D):
+    a learned weighted sum of the L tokens plus one bias, (B, L, D) →
+    (B, D). Computed as a product (no cuDNN convolution, so fp32 stays fp32
+    on the card); the weight keeps the conv's (1, L, 1) shape."""
+
+    def __init__(self, n_tokens: int):
+        super().__init__()
+        self.weight = nn.Parameter(lecun_normal_(torch.empty(1, n_tokens, 1)))
+        self.bias = nn.Parameter(torch.zeros(1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.einsum("bld,l->bd", x, self.weight[0, :, 0].to(x.dtype)) + self.bias.to(x.dtype)
+
+
+class LabelEncoderPretrain(nn.Module):
+    """LabelEncoder plus the pretraining heads: `forward(ids, visual_emb)` →
+    {"text_emb", "cls_out" (B, L, 95), "pos_out" (B, L, L), "text_out"
+    (B, clip_dim), "logit_scale" (never clamped), and with `visual_emb`
+    (B, visual_len, visual_dim) "visual_out" (B, clip_dim)}.
+
+    cls head: InstanceNorm → Linear(emb) → exact GELU → Linear(95); pos
+    head: InstanceNorm → Linear(max_len, no bias); text and visual heads:
+    InstanceNorm → Linear(clip_dim, no bias) → TokenMix."""
+
+    def __init__(self, max_len: int = 12, emb_dim: int = 2048, n_heads: int = 8,
+                 n_trans_layers: int = 12, clip_dim: int = 1024, visual_len: int = 197,
+                 visual_dim: int = 768):
+        super().__init__()
+        self.max_len, self.visual_len, self.visual_dim = max_len, visual_len, visual_dim
+        self.encoder = LabelEncoder(max_len, emb_dim, n_heads, n_trans_layers)
+        self.logit_scale = nn.Parameter(torch.tensor(math.log(1 / 0.07)))
+        self.norm = InstanceNorm()  # the reference's four InstanceNorms: none has parameters
+        self.cls_fc1 = Dense(emb_dim, emb_dim)
+        self.cls_fc2 = Dense(emb_dim, NUM_CLASSES)
+        self.pos_fc = Dense(emb_dim, max_len, bias=False)
+        self.text_fc = Dense(emb_dim, clip_dim, bias=False)
+        self.text_mix = TokenMix(max_len)
+        self.visual_fc = Dense(visual_dim, clip_dim, bias=False)
+        self.visual_mix = TokenMix(visual_len)
+
+    def forward(self, ids: torch.Tensor, visual_emb: Optional[torch.Tensor] = None
+                ) -> Dict[str, torch.Tensor]:
+        text_emb = self.encoder(ids)
+        h = self.norm(text_emb)
+        out = {
+            "text_emb": text_emb,
+            "cls_out": self.cls_fc2(F.gelu(self.cls_fc1(h))),
+            "pos_out": self.pos_fc(h),
+            "text_out": self.text_mix(self.text_fc(h)),
+            "logit_scale": self.logit_scale,
+        }
+        if visual_emb is not None:
+            out["visual_out"] = self.visual_mix(self.visual_fc(self.norm(visual_emb)))
+        return out

@@ -1,20 +1,21 @@
-"""Vision Transformer encoder of PARSeq (port of `udifftext_tpu/models/vit.py`,
-the class-token-free `ViTEncoder`).
+"""Vision Transformer encoders of PARSeq and ViTSTR (port of
+`udifftext_tpu/models/vit.py`).
 
-timm's `VisionTransformer.forward_features` without a class token: a conv
-patch embedding, a learned position embedding, pre-LN blocks (x += attn(norm1
-(x)); x += mlp(norm2(x)), packed qkv with bias, exact GELU) and a final
-norm; every token is returned. Parameter names are timm's
-(`patch_embed.proj.weight`, `pos_embed`, `blocks.0.attn.qkv.weight`,
-`blocks.0.mlp.fc1.bias`, `norm.weight`, …), the keys the PARSeq checkpoint
-holds under `encoder.`. Images are NHWC; attention is plain matmul and fp32
-softmax, as in the JAX package (not the flash kernels).
+timm's `VisionTransformer.forward_features`: a conv patch embedding, an
+optional class token, a learned position embedding, pre-LN blocks (x +=
+attn(norm1(x)); x += mlp(norm2(x)), packed qkv with bias, exact GELU) and a
+final norm; every token is returned. Parameter names are timm's
+(`cls_token`, `patch_embed.proj.weight`, `pos_embed`,
+`blocks.0.attn.qkv.weight`, `blocks.0.mlp.fc1.bias`, `norm.weight`, …), the
+keys the PARSeq checkpoint holds under `encoder.` and a ViTSTR checkpoint
+holds beside its classifier head. Images are NHWC; attention is plain matmul
+and fp32 softmax, as in the JAX package (not the flash kernels).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -85,22 +86,49 @@ class PatchEmbed(nn.Module):
 
 
 class ViTEncoder(nn.Module):
-    """timm VisionTransformer forward_features (all tokens, post-norm), no
-    class token. PARSeq's: img 32×128, patch 4×8, dim 384, depth 12, heads 6."""
+    """timm VisionTransformer forward_features (all tokens, post-norm).
+    PARSeq's: img 32×128, patch 4×8, dim 384, depth 12, heads 6, no class
+    token. With `class_token`, a zero-initialized `cls_token` goes before
+    the patches, and the position embedding covers it too."""
 
     def __init__(self, img_size: Tuple[int, int] = (32, 128), patch_size: Tuple[int, int] = (4, 8),
                  embed_dim: int = 384, depth: int = 12, num_heads: int = 6,
-                 mlp_ratio: float = 4.0, in_chans: int = 3):
+                 mlp_ratio: float = 4.0, in_chans: int = 3, class_token: bool = False):
         super().__init__()
         n = (img_size[0] // patch_size[0]) * (img_size[1] // patch_size[1])
         self.patch_embed = PatchEmbed(in_chans, embed_dim, patch_size)
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim)) if class_token else None
+        n += int(class_token)
         self.pos_embed = nn.Parameter(torch.empty(1, n, embed_dim).normal_(std=0.02))
         self.blocks = nn.ModuleList(ViTBlock(embed_dim, num_heads, mlp_ratio)
                                     for _ in range(depth))
         self.norm = LayerNormF32(embed_dim, eps=1e-6)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.patch_embed(x) + self.pos_embed.to(x.dtype)
+        x = self.patch_embed(x)
+        if self.cls_token is not None:
+            x = torch.cat([self.cls_token.to(x.dtype).expand(x.shape[0], -1, -1), x], dim=1)
+        x = x + self.pos_embed.to(x.dtype)
         for blk in self.blocks:
             x = blk(x)
         return self.norm(x)
+
+
+class ViTSTREncoder(ViTEncoder):
+    """ViTSTR-base's feature extractor: a ViT with class token over grayscale
+    size² images (NHWC), returning all (size/patch)² + 1 tokens (197 at 224,
+    patch 16). Only features are read; the checkpoint's classifier head is
+    dropped by `vitstr_features`."""
+
+    def __init__(self, size: int = 224, patch_size: int = 16, embed_dim: int = 768,
+                 depth: int = 12, num_heads: int = 12, mlp_ratio: float = 4.0,
+                 in_chans: int = 1):
+        super().__init__((size, size), (patch_size, patch_size), embed_dim, depth, num_heads,
+                         mlp_ratio, in_chans, class_token=True)
+
+
+def vitstr_features(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A ViTSTR (timm) state dict without its classifier: the `head*`,
+    `dist_token` and `pre_logits*` entries dropped, as the JAX package's
+    `convert_vitstr` drops them; the rest are `ViTSTREncoder`'s keys."""
+    return {k: v for k, v in sd.items() if not k.startswith(("head", "dist_token", "pre_logits"))}

@@ -10,6 +10,14 @@ and after the accumulation loop `all_reduce_mean_` averages the trainable
 gradients in a few flat buckets: one all-reduce per optimizer step, not one
 per micro-batch's backward as `DistributedDataParallel` would. Every process
 then takes the same AdamW step on the same parameters.
+
+LabelEncoder pretraining's contrastive loss spans the global batch:
+`all_gather_rows` gathers every process's rows of a tensor in rank order,
+and its backward hands each process its rows of the gradient summed over
+the processes. Every process computes the same global loss from the
+gathered rows, so the summed gradient of its own rows is W times that
+loss's gradient, and the mean that `all_reduce_mean_` then takes of the
+parameter gradients is the global loss's gradient.
 """
 
 from __future__ import annotations
@@ -83,6 +91,29 @@ def all_reduce_mean_(tensors: Sequence[torch.Tensor], bucket_bytes: int = BUCKET
             for t in bucket:
                 t.copy_(flat[offset:offset + t.numel()].view_as(t))
                 offset += t.numel()
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
+        dist.all_gather(parts, x.contiguous())
+        ctx.rows = slice(dist.get_rank() * x.shape[0], (dist.get_rank() + 1) * x.shape[0])
+        return torch.cat(parts)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor) -> torch.Tensor:
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad)
+        return grad[ctx.rows]
+
+
+def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
+    """Every process's x (each of the same shape) concatenated along the
+    first axis in rank order, differentiably: the backward returns this
+    process's rows of the gradient summed over the processes. `x` itself
+    without a process group."""
+    return _GatherRows.apply(x) if is_distributed() else x
 
 
 def broadcast_int(value: int, device: torch.device | str) -> int:

@@ -14,14 +14,18 @@ fake/<name>.png and the grid <name>.png (image, masked, mask, sample
 stacked); with `aae_enabled`, prints the per-step local losses and writes
 temp/inters/<name>.gif; with `detailed`, writes the middle step's
 attention-map grid and temp/seg_map/seg_<name>.npy. Then it prints the mean
-OCR accuracy. PNGs go through `utils/png.py` (no Pillow needed); the GIF and
-the map grid need imageio and matplotlib/seaborn. The seed is drawn at random
-and printed; one generator serves every batch.
+OCR accuracy. With `quan_test`, it then prints the FID and the LPIPS score
+of fake/ against real/ (`metrics.calc_fid`, `calc_lpips`, on the engine's
+device; without the metrics' weights files each prints why it is skipped).
+PNGs go through `utils/png.py` (no Pillow needed); the GIF and the map grid
+need imageio and matplotlib/seaborn. The seed is drawn at random and
+printed; one generator serves every batch.
 
 With `eval_data_parallel`, the run is one process per card under torchrun:
 the loader gives each process its share of the split, rank 0 alone wipes
 the output directories, and the OCR counts are summed over the processes
-before the mean is printed. Without a process group it raises.
+before the mean is printed; rank 0 alone computes FID and LPIPS, over every
+process's files. Without a process group it raises.
 """
 
 from __future__ import annotations
@@ -114,10 +118,8 @@ def test(bundle: EngineBundle, sampler: SamplerSettings, dataloader, cfgs: Mappi
          seed: Optional[int] = None) -> Dict[str, Any]:
     """Run the evaluation; returns {"correct", "total" (OCR counts over
     every process; 0 without OCR), "seconds" (this process's seconds per
-    batch, sampling to written files), "names"}."""
-    if cfgs.get("quan_test"):
-        raise NotImplementedError("quan_test: FID and LPIPS (inception, LPIPS) are not ported "
-                                  "yet (ROADMAP.md Queue 1 #13)")
+    batch, sampling to written files), "names"}, and with `quan_test` on
+    rank 0 "fid" and "lpips" (None where skipped)."""
     rank, _ = dist.rank_and_world()
     if cfgs.get("eval_data_parallel") and not dist.is_distributed():
         raise RuntimeError("eval_data_parallel: run one process per card: torchrun "
@@ -188,13 +190,20 @@ def test(bundle: EngineBundle, sampler: SamplerSettings, dataloader, cfgs: Mappi
         seconds.append(time.perf_counter() - t0)
         names.append(name)
 
-    if dist.is_distributed():
+    if dist.is_distributed():  # also the point every process's files are written by
         counts = torch.tensor([correct_num, total_num], dtype=torch.int64, device=dev)
         torch.distributed.all_reduce(counts)
         correct_num, total_num = (int(v) for v in counts.tolist())
     if ocr is not None and total_num and rank == 0:
         print(f"OCR test completed. Mean accuracy: {correct_num / total_num}")
-    return {"correct": correct_num, "total": total_num, "seconds": seconds, "names": names}
+    out = {"correct": correct_num, "total": total_num, "seconds": seconds, "names": names}
+    if cfgs.get("quan_test") and rank == 0:
+        from .metrics import calc_fid, calc_lpips
+
+        fake_dir, real_dir = ospj(output_dir, "fake"), ospj(output_dir, "real")
+        out["fid"] = calc_fid(fake_dir, real_dir, device=dev)
+        out["lpips"] = calc_lpips(fake_dir, real_dir, device=dev)
+    return out
 
 
 def main(argv=None) -> None:

@@ -2,7 +2,9 @@
 
 The inverse of the reference-checkpoint converters of the JAX build
 (`udifftext_tpu/utils/ckpt_torch.py` convert_unet / convert_vae /
-convert_label_encoder / convert_vit / convert_parseq): flax module paths map
+convert_label_encoder / convert_vit / convert_parseq / convert_vitstr /
+convert_fid_inception / convert_lpips_alex, and the pretraining heads of
+`LabelEncoderPretrain`): flax module paths map
 back to the reference torch module paths the port's modules carry, HWIO conv
 kernels to OIHW, (in, out) dense kernels to (out, in), norm scales to
 weights, a packed (d, 3d) `in_proj_kernel` to `in_proj_weight`; other
@@ -156,6 +158,72 @@ def label_encoder_from_jax(params) -> Dict[str, torch.Tensor]:
     sd = _convert(params, _label_encoder_path)
     return {re.sub(r"self_attn\.in_proj\.(weight|bias)$", r"self_attn.in_proj_\1", k): v
             for k, v in sd.items()}
+
+
+def label_encoder_pretrain_from_jax(params) -> Dict[str, torch.Tensor]:
+    """JAX LabelEncoderPretrain params → `models.label_encoder.
+    LabelEncoderPretrain` state dict: the LabelEncoder under `encoder.`, the
+    heads' dense layers by name, the (L, 1) token-mix kernels as the
+    reference Conv1d's (1, L, 1) weights."""
+    tree = params.get("params", params)
+    sd = {f"encoder.{k}": v for k, v in label_encoder_from_jax(tree["encoder"]).items()}
+    sd.update(_convert({k: v for k, v in tree.items() if k != "encoder" and isinstance(v, dict)},
+                       lambda mods: mods))
+    for name, v in tree.items():
+        v = np.asarray(v, np.float32) if not isinstance(v, dict) else None
+        if v is None:
+            continue
+        if name.endswith("_mix_kernel"):  # (L, 1) → the Conv1d's (1, L, 1)
+            sd[f"{name[:-len('_kernel')]}.weight"] = torch.from_numpy(v.reshape(1, -1, 1).copy())
+        elif name.endswith("_mix_bias"):
+            sd[f"{name[:-len('_bias')]}.bias"] = torch.from_numpy(v.copy())
+        else:  # logit_scale
+            sd[name] = torch.from_numpy(v.copy())
+    return sd
+
+
+def vitstr_from_jax(params) -> Dict[str, torch.Tensor]:
+    """JAX ViTSTREncoder params → `models.vit.ViTSTREncoder` state dict
+    (timm keys: the flax `vit` level goes, `cls_token` keeps its name)."""
+    return vit_from_jax(params.get("params", params)["vit"])
+
+
+_BN_LEAVES = {"bn_weight": "weight", "bn_bias": "bias", "bn_mean": "running_mean",
+              "bn_var": "running_var"}
+
+
+def inception_from_jax(params) -> Dict[str, torch.Tensor]:
+    """JAX FIDInceptionV3 params → `models.inception.FIDInceptionV3` state
+    dict (pytorch_fid's keys; `num_batches_tracked` 0)."""
+    sd = {}
+    for path, v in _flatten(params.get("params", params)):
+        if path[-1] in _BN_LEAVES:
+            base = ".".join(path[:-1])
+            sd[f"{base}.bn.{_BN_LEAVES[path[-1]]}"] = torch.from_numpy(v.astype(np.float32))
+            sd[f"{base}.bn.num_batches_tracked"] = torch.tensor(0)
+        else:  # {block}/{branch}/conv/kernel
+            leaf, t = _tensor(path[-1], v)
+            sd[".".join(path[:-1] + (leaf,))] = t
+    return sd
+
+
+def lpips_from_jax(params) -> Dict[str, torch.Tensor]:
+    """JAX LPIPSAlex params → `models.lpips.LPIPSAlex` state dict (lpips'
+    keys: net.conv{I} → net.slice{K}.{I}, lin{i} (C,) → lin{i}.model.1.weight
+    (1, C, 1, 1)); the scaling layer's constants are the module's own."""
+    from ..models.lpips import ScalingLayer, slice_key
+
+    tree = params.get("params", params)
+    sd = {f"scaling_layer.{k}": v for k, v in ScalingLayer().state_dict().items()}
+    for name, sub in tree["net"].items():
+        for leaf, v in sub.items():
+            key, t = _tensor(leaf, np.asarray(v))
+            sd[f"{slice_key(int(name[len('conv'):]))}.{key}"] = t
+    for name, v in tree.items():
+        if name.startswith("lin"):
+            sd[f"{name}.model.1.weight"] = torch.from_numpy(
+                np.asarray(v, np.float32).reshape(1, -1, 1, 1).copy())
+    return sd
 
 
 def engine_from_jax(params: Dict[str, dict]) -> Dict[str, torch.Tensor]:
