@@ -211,7 +211,30 @@ matplotlib, imageio or safetensors). Phases, each printed on its own line:
    of seeded random weights, within 1e-2 (relative L2; relative for each
    distance: cuDNN convolutions take TF32 by PyTorch's default, as
    pytorch_fid's run does), and each extractor's images/s at 512². The eval
-   CLI's quan_test run is phase 12's.
+   CLI's quan_test run is phase 12's;
+16. the conditioning surface, on the option graph (`option_graph`: the
+   shipped graph with scale-shift norm, the ctrl block (3 hint channels) and
+   the label embedding (adm_in_channels 1536), and after the shipped three
+   embedders a trainable ClassEmbedder (1000 × 1024), a
+   ConcatTimestepEmbedderND (outdim 256) of a (B, 2) size and a trainable
+   remapping SpatialRescaler of the 512² hint, three halvings, into the ctrl
+   block), seeded random weights, full width. (a) The demo flow of phase 5
+   (CFG 4.0, 10 candidates in the batched search, 50 steps) with the cls,
+   size and hint keys, 3 runs: finite, in [0, 1], not constant, 520 flash
+   and 780 GEGLU launches; s per sample beside phase 5's median in this
+   call, the ctrl block's GFLOP a row, peak memory; a 5-step sample with
+   kernels against attn_impl="plain" within phase 5b's relative-L2
+   tolerance. (d) Encoder propagation refusing the ctrl block. (b) Two
+   fine-tuning steps at configs/train.yaml's 16 × 4 with the two trainable
+   embedders: frozen parameters bit-identical, every trainable one (t_attn,
+   t_norm, both embedders; every class row, by AdamW's decoupled weight
+   decay) moved, the flash backward 10 times a micro-batch (the trainable
+   embedders sit upstream of the first self-attention; phase 6 counts 9);
+   s per step, peak memory. (c) The OpenCLIP ViT-H-14 text tower (24 ×
+   1024, 77 tokens; penultimate and EOT-pooled) and vision tower (32 ×
+   1280, a 256² image resized to 224²; tokens and pooled), fp32, B=2,
+   seeded random weights: card against CPU within 1e-3 relative L2, ms per
+   call. Phase 16 prints its own seconds.
 
 Beside every kernel's time stand its plain version's, its bound (the least
 time the card could take: the larger of bytes moved once over 3.35 TB/s and
@@ -222,8 +245,9 @@ never calls it.
 
 Each path (demo, AAE, training, OCR-loss training, glue probe, ResBlock
 probe, variants probe, serving, eval CLI, train CLI, encoder propagation at
-interval 2, the other samplers, pretraining, the metrics) runs with the
-launch counts set to 0 just before it and read just after.
+interval 2, the other samplers, pretraining, the metrics, the options demo
+and the options fine-tuning) runs with the launch counts set to 0 just
+before it and read just after.
 Any failure exits non-zero. The
 second-to-last line is the kernels' JSON record: each kernel's `launches`
 counts the path named by its `launches_path` (training for the kernels the
@@ -796,6 +820,227 @@ def sampling_options(engine, plain_engine, batch, kernel_fns, expected, by_path,
                 fail(f"{name} is not finite or disagrees with its attn_impl='plain' run")
             total = {k_: total[k_] + n for k_, n in launches.items()}
     by_path["samplers"] = total
+
+
+# The option graph: the shipped test graph with every model-graph option
+# the shipped one leaves off (scale-shift norm, the ctrl block, the label
+# embedding) and three more embedders after the shipped three: vector
+# 1024 + 2·256 = 1536 = adm_in_channels; concat 1 + 4 + 3, so the UNet reads
+# 9 + 3 channels, the remapped hint going to the ctrl block
+_M = "sgm.modules.encoders.modules."
+OPTION_EMBEDDERS = (
+    {"is_trainable": True, "ucg_rate": 0.1, "input_key": "cls", "target": _M + "ClassEmbedder",
+     "params": {"embed_dim": 1024, "n_classes": 1000}},
+    {"input_key": "size", "target": _M + "ConcatTimestepEmbedderND", "params": {"outdim": 256}},
+    {"is_trainable": True, "input_key": "hint", "target": _M + "SpatialRescaler",
+     "params": {"in_channels": 3, "multiplier": 0.5, "n_stages": 3, "out_channels": 3}},
+)
+
+
+def option_graph(base: dict) -> dict:
+    graph = copy.deepcopy(base)
+    graph["network_config"]["params"].update(use_scale_shift_norm=True, ctrl_channels=3,
+                                             use_label=1, adm_in_channels=1536)
+    graph["conditioner_config"]["params"]["emb_models"] += copy.deepcopy(list(OPTION_EMBEDDERS))
+    return graph
+
+
+def option_keys(batch: dict, seed: int) -> dict:
+    """`batch` with the option graph's extra keys: a class id, the (h, w)
+    size and a [-1, 1] hint image of the batch's size."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    b, h, w = batch["image"].shape[:3]
+    return {**batch, "cls": rs.randint(0, 999, (b,)).astype(np.int64),
+            "size": np.tile(np.array([[h, w]], np.float32), (b, 1)),
+            "hint": np.clip(np.asarray(batch["image"])[..., ::-1] * 0.5
+                            + 0.1 * rs.standard_normal((b, h, w, 3)), -1, 1).astype(np.float32)}
+
+
+def conditioning_options(dev, card: str, kernel_fns, expected, by_path, demo_s: float,
+                         ab_tol: float) -> None:
+    """Phase 16: the conditioning surface at full width (the option
+    graph, seeded random weights): (a) the demo flow, (b) two fine-tuning
+    steps with the two trainable embedders, (c) the OpenCLIP ViT-H-14
+    towers card against CPU, (d) encoder propagation refusing the ctrl
+    block."""
+    import numpy as np
+    import torch
+
+    from udifftext_tpu_torch import demo
+    from udifftext_tpu_torch.builders import (TEXTDESIGN_SD_2, TEXTDESIGN_SD_2_TRAIN,
+                                              build_engine, randomize_parameters)
+    from udifftext_tpu_torch.data.synthetic import SyntheticBatches
+    from udifftext_tpu_torch.models.open_clip import (FrozenOpenCLIPImageEmbedder,
+                                                      FrozenOpenCLIPTextEmbedder,
+                                                      OpenClipTextTransformer,
+                                                      OpenClipVisionTransformer)
+    from udifftext_tpu_torch.models.unet import CTRL_WIDTHS
+    from udifftext_tpu_torch.predict import Predictor
+    from udifftext_tpu_torch.train import train
+
+    t_phase = time.perf_counter()
+    graph = option_graph(TEXTDESIGN_SD_2)
+    bundle = build_engine(graph, torch.bfloat16, dev)
+    engine = bundle.engine
+    randomize_parameters(engine, 0)
+    gc = engine.general_conditioner
+    if gc is None or gc.trainable_embedders != ("3_ClassEmbedder", "5_SpatialRescaler"):
+        fail("the option graph built no GeneralConditioner with the two trainable embedders")
+    rs = np.random.RandomState(16)
+    yy, xx = np.mgrid[0:600, 0:800]
+    image = np.stack([(xx * 255 // 800), (yy * 255 // 600), ((xx + yy) % 256)], -1)
+    image = (image + rs.randint(0, 32, image.shape)).clip(0, 255).astype(np.uint8)
+    mask = np.zeros((600, 800), np.uint8)
+    mask[220:380, 200:600] = 255
+    batch = option_keys(demo.build_batch(image, mask, "HELLO", 512, 512, 12), 16)
+    ctrl_gflop = 2 * 9 * 64 * 64 * sum(a * b for a, b in zip((3,) + CTRL_WIDTHS,
+                                                             CTRL_WIDTHS + (320,))) / 1e9
+
+    # (a) the demo flow: CFG 4.0, 10 candidates in the batched search, 50 steps
+    pred = Predictor(engine, num_steps=50, cfg_scale=4.0, noise_iters=10,
+                     noise_search_batched=True)
+    secs, want = [], expected(flash_attention=52 * 10, geglu_ff=52 * 15)
+    held = torch.cuda.memory_allocated(dev) / 2**30  # the engine and what earlier phases hold
+    torch.cuda.reset_peak_memory_stats(dev)
+    for run in range(3):  # the first builds caches
+        reset(*kernel_fns)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        images, aux = pred(batch, torch.Generator(dev).manual_seed(run))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        launches = counts(*kernel_fns)
+        if launches != want:
+            fail(f"options demo launches {launches}, the plan {want}")
+        if tuple(images.shape) != (1, 512, 512, 3) or not (
+                torch.isfinite(images).all() and float(images.min()) >= 0.0
+                and float(images.max()) <= 1.0 and float(images.std()) > 0):
+            fail("options demo output is not a finite, non-constant (1, 512, 512, 3) in [0, 1]")
+    by_path["options"] = launches
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    log(f"[options] {card}: demo with scale-shift norm, ctrl block ({ctrl_gflop:.2f} GFLOP a row), "
+        f"label embedding of a 1536-wide vector and six embedders: "
+        f"{[round(x_, 3) for x_ in secs]} s per sample (B=1, 512², 10 candidates, 50 steps, CFG "
+        f"4.0), median after the first {statistics.median(secs[1:]):.3f} s against phase 5's "
+        f"{demo_s:.3f} s in this call; peak device memory {peak:.2f} GiB ({held:.2f} GiB "
+        f"allocated before, the engine's weights included); launches {launches}; "
+        f"output mean {float(images.mean()):.4f} std {float(images.std()):.4f}")
+    plain = build_engine(graph, torch.bfloat16, dev, attn_impl="plain").engine
+    randomize_parameters(plain, 0)
+    short = {}
+    for name, eng in (("auto", engine), ("plain", plain)):
+        reset(*kernel_fns)
+        short[name], _ = Predictor(eng, num_steps=5, cfg_scale=4.0, noise_iters=10,
+                                   noise_search_batched=True)(batch,
+                                                              torch.Generator(dev).manual_seed(0))
+        got = counts(*kernel_fns)
+        if got != (expected(flash_attention=70, geglu_ff=105) if name == "auto" else expected()):
+            fail(f"a 5-step options sample under {name!r} launched {got}")
+    err = rel_l2(short["auto"], short["plain"])
+    log(f"[options] 5-step sample with kernels against attn_impl='plain': relative L2 {err:.3e} "
+        f"(tol {ab_tol:.0e})")
+    if not err <= ab_tol:
+        fail("the options graph with kernels disagrees with attn_impl='plain'")
+
+    # (d) encoder propagation refuses the ctrl block before any work
+    try:
+        Predictor(engine, num_steps=50, noise_iters=10, encprop_interval=2)(batch)
+        fail("encoder propagation ran on a UNet with the ctrl block")
+    except NotImplementedError as e:
+        log(f"[options] encprop on the ctrl graph refused: {e}")
+    del plain, eng, pred, short, images, aux, engine, bundle, gc
+    torch.cuda.empty_cache()
+
+    # (b) two fine-tuning steps at configs/train.yaml's 16 × 4 with the two
+    # trainable embedders (the train graph with the options)
+    accum, micro_b, steps = 4, 16, 2
+    bundle = build_engine(option_graph(TEXTDESIGN_SD_2_TRAIN), torch.bfloat16, dev, train=True)
+    engine = bundle.engine
+    randomize_parameters(engine, 0)
+    # host copies, as phase 6 takes them, so that the peak compares with its peak
+    frozen = {n: p.detach().cpu().clone() for n, p in engine.named_parameters()
+              if not p.requires_grad}
+    trained = {n: p.detach().cpu().clone() for n, p in engine.named_parameters()
+               if p.requires_grad}
+    emb_names = [n for n in trained if n.startswith("general_conditioner.")]
+    batches = [option_keys(b_, i_) for i_, b_ in
+               enumerate(SyntheticBatches(accum, micro_b, seed=0).batches)]
+    with tempfile.TemporaryDirectory(prefix="udt_options_") as log_dir:
+        cfgs = {"batch_size": micro_b, "base_learning_rate": 5e-5, "log_dir": log_dir,
+                "lightning": {"accumulate_grad_batches": accum, "max_epochs": steps}}
+        reset(*kernel_fns)
+        held = torch.cuda.memory_allocated(dev) / 2**30
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train(cfgs, batches, bundle, seed=0, log_every=1)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = by_path["options_train"] = counts(*kernel_fns)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        with open(f"{log_dir}/train_metrics.jsonl") as f:
+            rows = [json.loads(line) for line in f]
+    after = {n: p.detach().cpu() for n, p in engine.named_parameters()}
+    unchanged = [n for n, v in frozen.items() if not torch.equal(v, after[n])]
+    moved = {n for n, v in trained.items() if not torch.equal(v, after[n])}
+    table = "general_conditioner.embedders.3.embedding.weight"
+    rows_moved = int((trained[table] != after[table]).any(dim=1).sum())
+    n_mb = steps * accum
+    want = expected(flash_attention=n_mb * 10, flash_attention_bwd=n_mb * 10,
+                    geglu_ff=n_mb * 15)
+    log(f"[options] {steps} fine-tuning steps of {accum}×{micro_b} in {train_s:.3f} s (the "
+        f"second {rows[-1]['time'] - rows[0]['time']:.3f} s); trainable {len(trained)} tensors "
+        f"({len(emb_names)} of the embedders: {emb_names}), {len(moved)} moved, "
+        f"{rows_moved} of 1000 class rows moved (AdamW's decoupled weight decay); {len(frozen)} "
+        f"frozen, {len(unchanged)} changed; loss {[round(r_['loss'], 4) for r_ in rows]}; "
+        f"peak device memory {peak:.2f} GiB ({held:.2f} GiB allocated before); launches "
+        f"{launches} (the flash backward 10 a "
+        f"micro-batch: the trainable embedders sit upstream of the first self-attention)")
+    if unchanged or moved != set(trained) or len(emb_names) != 2 or not any(
+            "t_attn" in n for n in moved) or not any("t_norm" in n for n in moved):
+        fail(f"options fine-tuning: frozen changed {unchanged[:3]}, not moved "
+             f"{sorted(set(trained) - moved)[:3]}")
+    if launches != want or not all(np.isfinite(r_["loss"]) for r_ in rows):
+        fail(f"options fine-tuning launches {launches}, expected {want}; loss {rows}")
+    del engine, bundle, frozen, trained, after, batches
+    torch.cuda.empty_cache()
+
+    # (c) the OpenCLIP ViT-H-14 towers, fp32, B=2, seeded random weights: card
+    # against the same modules on the CPU
+    torch.manual_seed(16)
+    with torch.device(dev):
+        text = FrozenOpenCLIPTextEmbedder(OpenClipTextTransformer(), layer="penultimate",
+                                          legacy=False, always_return_pooled=True)
+        vision = FrozenOpenCLIPImageEmbedder(OpenClipVisionTransformer(), output_tokens=True)
+    n_text = sum(p_.numel() for p_ in text.parameters()) / 1e6
+    n_vis = sum(p_.numel() for p_ in vision.parameters()) / 1e6
+    ids = torch.as_tensor(rs.randint(1, 49406, (2, 77)))
+    ids[0, 20:], ids[0, 19], ids[1, 76] = 0, 49407, 49407
+    pics = torch.as_tensor(rs.uniform(-1, 1, (2, 256, 256, 3)).astype(np.float32))
+    outs, ms = {}, {}
+    for where in (dev, "cpu"):
+        t_, v_ = (text, vision) if where == dev else (copy.deepcopy(text).cpu(),
+                                                      copy.deepcopy(vision).cpu())
+        outs[str(where)] = (*t_(ids.to(where)), *v_(pics.to(where)))
+        if where == dev:
+            ms["text"] = time_ms(lambda: t_(ids.to(dev)))
+            ms["vision"] = time_ms(lambda: v_(pics.to(dev)))
+        del t_, v_
+    errs = [rel_l2(a_.cpu(), b_) for a_, b_ in zip(outs[str(dev)], outs["cpu"])]
+    log(f"[options] OpenCLIP ViT-H-14 text tower ({n_text:.1f} M parameters, 24 × 1024, 77 "
+        f"tokens, penultimate and EOT-pooled) {ms['text']:.3f} ms and vision tower "
+        f"({n_vis:.1f} M, 32 × 1280, 256² resized to 224², tokens and pooled) {ms['vision']:.3f} ms "
+        f"per call at B=2, fp32; card against CPU relative L2 {[f'{e_:.2e}' for e_ in errs]} "
+        f"(tolerance 1e-3: cuDNN's conv1 in TF32)")
+    if any(not (e_ <= 1e-3) for e_ in errs) or not all(
+            torch.isfinite(o_).all() for o_ in outs[str(dev)]):
+        fail("OpenCLIP towers: card and CPU disagree, or the output is not finite")
+    del text, vision, outs
+    torch.cuda.empty_cache()
+    log(f"[options] phase 16 in {time.perf_counter() - t_phase:.1f} s")
+
 
 
 def main() -> None:
@@ -1611,6 +1856,7 @@ def main() -> None:
             fail(f"kernel launches {launches}, expected {want} (ds1+ds2 self-attention; "
                  "ds1/ds2/ds4 feed-forwards; no backward when sampling)")
     by_path["demo"] = launches
+    demo_s = statistics.median(seconds[1:])
     log(f"[demo] output mean {float(images.mean()):.4f} std {float(images.std()):.4f}; s per "
         f"sample after the first run: median {statistics.median(seconds[1:]):.3f}, "
         f"min {min(seconds[1:]):.3f}, max {max(seconds[1:]):.3f}")
@@ -2702,6 +2948,11 @@ def main() -> None:
         fail(f"metrics: features {feats.shape}, relative L2 {feat_err}, distances {dists}")
     del fns, feature_fn, distance_fn
     torch.cuda.empty_cache()
+
+    # 16. the conditioning surface: the option graph's demo flow, two
+    # fine-tuning steps with trainable embedders, the OpenCLIP towers, and
+    # encoder propagation refusing the ctrl block
+    conditioning_options(dev, card, kernel_fns, expected, by_path, demo_s, ab_tol)
 
     kernels = []
     for name, src, replaces, key, path in (

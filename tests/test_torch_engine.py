@@ -178,13 +178,16 @@ def test_unported_options_raise(engines, tmp_path, monkeypatch):
         Predictor(pe)({k: v for k, v in u8.items() if k not in ("mask", "masked")})
     with pytest.raises(ValueError, match="synthesizes 'masked'"):
         Predictor(pe)(u8)
+    # the ctrl block and any embedder list are built (tests/test_torch_conditioning.py);
+    # what the JAX build lacks is refused: the conv proj_in/proj_out of
+    # use_linear_in_transformer false, and an embedder target it does not know
     cfg = U.tiny_model_cfg()
-    cfg["network_config"]["params"]["ctrl_channels"] = 3
-    with pytest.raises(NotImplementedError, match="ctrl"):
+    cfg["network_config"]["params"]["use_linear_in_transformer"] = False
+    with pytest.raises(NotImplementedError, match="conv proj_in/proj_out"):
         build_engine(cfg, torch.float32, "cpu")
     cfg = U.tiny_model_cfg()
-    cfg["conditioner_config"]["params"]["emb_models"].pop(1)
-    with pytest.raises(NotImplementedError, match="embedder graph"):
+    cfg["conditioner_config"]["params"]["emb_models"][1]["target"] = "sgm.modules.Unknown"
+    with pytest.raises(ValueError, match="unsupported embedder target"):
         build_engine(cfg, torch.float32, "cpu")
     # the OCR loss term is ported (tests/test_torch_ocr_train.py); an OCR
     # predictor other than PARSeq is not

@@ -1,11 +1,15 @@
-"""Model graph → engine (port of `udifftext_tpu/builders.py` for the shipped
-graph).
+"""Model graph → engine (port of `udifftext_tpu/builders.py`).
 
 `build_engine` takes the `model.params` node of a textdesign_sd_2.yaml graph
 (as a plain dict; `TEXTDESIGN_SD_2` and `TEXTDESIGN_SD_2_TRAIN` hold the
 shipped ones, so no YAML parser is needed) and returns the engine with its
-sampler settings. Parts of the graph the port does not run yet raise
-NotImplementedError instead of being dropped.
+sampler settings. The shipped three-embedder graph conditions through the
+fused `Conditioner`; any other embedder list through a `GeneralConditioner`
+(`build_general_conditioner`). What the JAX build lacks is refused: a
+target it does not know raises ValueError, and the parts it does not
+implement (a transformer with conv proj_in/proj_out, a sigma sampler other
+than DiscreteSampling, ...) raise NotImplementedError instead of being
+dropped.
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from .conditioning import (EmbedderSpec, GeneralConditioner, LabelEncoderEmbedder,
+                           LatentEncoder, SpatialRescaler)
 from .diffusion.denoiser import DiscreteDenoiser
 from .diffusion.loss import FullLossConfig
 from .diffusion.schedules import (SCALINGS, WEIGHTINGS, Discretization, DiscreteSampling,
@@ -185,23 +191,77 @@ def _tag(node: Optional[Dict[str, Any]], kind: str, known) -> str:
     return tag
 
 
-def _check_embedders(emb_models) -> Dict[str, Any]:
-    """The shipped three-embedder graph (LabelEncoder → t_crossattn,
-    SpatialRescaler(mask), LatentEncoder(masked)); returns its settings."""
+def _shipped_embedders(emb_models) -> Optional[Dict[str, Any]]:
+    """The settings of the shipped three-embedder graph (LabelEncoder →
+    t_crossattn, one bilinear SpatialRescaler stage of the mask, the
+    LatentEncoder of the masked image, none trainable, no dropout on the
+    last two), which the fused Conditioner runs; None for any other list."""
     targets = [e.get("target", "").rsplit(".", 1)[-1] for e in emb_models]
-    _require(targets == ["LabelEncoder", "SpatialRescaler", "LatentEncoder"],
-             f"embedder graph {targets}")
+    if targets != ["LabelEncoder", "SpatialRescaler", "LatentEncoder"]:
+        return None
     le, sr, lat = emb_models
-    _require(le.get("emb_key") in (None, "t_crossattn")
-             and le.get("input_key", "label") in ("label", "label_ids"),
-             "LabelEncoder routing other than label → t_crossattn")
-    _require(not sr.get("emb_key") and sr.get("input_key", "mask") == "mask"
-             and int(_params(sr).get("n_stages", 1)) == 1 and not _params(sr).get("out_channels"),
-             "SpatialRescaler other than one bilinear stage of the mask")
-    _require(not lat.get("emb_key") and lat.get("input_key", "masked") == "masked",
-             "LatentEncoder other than the masked image")
-    _require(not any(e.get("is_trainable") for e in emb_models), "trainable embedders")
-    return {"label": le, "mask_multiplier": float(_params(sr).get("multiplier", 0.5))}
+    sr_p = _params(sr)
+    if not (le.get("emb_key") in (None, "t_crossattn")
+            and le.get("input_key", "label") in ("label", "label_ids")
+            and not sr.get("emb_key") and sr.get("input_key", "mask") == "mask"
+            and int(sr_p.get("n_stages", 1)) == 1 and not sr_p.get("out_channels")
+            and sr_p.get("method", "bilinear") == "bilinear"
+            and not lat.get("emb_key") and lat.get("input_key", "masked") == "masked"
+            and not any(e.get("is_trainable") for e in emb_models)
+            and not any(float(e.get("ucg_rate", 0.0)) for e in (sr, lat))):
+        return None
+    return {"label": le, "mask_multiplier": float(sr_p.get("multiplier", 0.5))}
+
+
+def build_general_conditioner(emb_models, label_encoder: LabelEncoder, vae: AutoencoderKL,
+                              scale_factor: float = 0.18215) -> GeneralConditioner:
+    """An embedder list (reference GeneralConditioner, modules.py:105-217) →
+    GeneralConditioner: each entry becomes an embedder module with its
+    EmbedderSpec (input_key, ucg_rate, emb_key, is_trainable). Targets:
+    LabelEncoder (the engine's; it reads the tokenized `label_ids`),
+    SpatialRescaler (with `out_channels`, the remap conv), LatentEncoder (the
+    engine's VAE), ClassEmbedder, ConcatTimestepEmbedderND."""
+    from .embedders import ClassEmbedder, ConcatTimestepEmbedderND, SpatialRescalerRemap
+
+    specs, mods = [], []
+    for n, emb in enumerate(emb_models):
+        target = emb.get("target", "").rsplit(".", 1)[-1]
+        p = emb.get("params", {}) or {}
+        input_key = emb.get("input_key", "")
+        emb_key = emb.get("emb_key")
+        if target == "LabelEncoder":
+            key = "label_ids" if input_key in ("label", "label_ids", "") else input_key
+            mod, emb_key = LabelEncoderEmbedder(label_encoder), emb_key or "t_crossattn"
+        elif target == "SpatialRescaler":
+            key = input_key or "mask"
+            method, n_stages = p.get("method", "bilinear"), int(p.get("n_stages", 1))
+            mult = float(p.get("multiplier", 0.5))
+            if p.get("out_channels"):
+                mod = SpatialRescalerRemap(mult, int(p["out_channels"]), method, n_stages,
+                                           in_channels=int(p.get("in_channels", 1)))
+            else:
+                mod, emb_key = SpatialRescaler(mult, method, n_stages), emb_key or "concat"
+        elif target == "LatentEncoder":
+            key = input_key or "masked"
+            mod, emb_key = LatentEncoder(vae, scale_factor), emb_key or "concat"
+        elif target == "ClassEmbedder":
+            key = input_key or "cls"
+            # the conditioner applies the dropout itself, as to every embedder
+            mod = ClassEmbedder(int(p.get("embed_dim", 512)), int(p.get("n_classes", 1000)),
+                                bool(p.get("add_sequence_dim", False)), ucg_rate=0.0)
+        elif target == "ConcatTimestepEmbedderND":
+            key = input_key
+            mod = ConcatTimestepEmbedderND(int(p.get("outdim", 256)))
+        else:
+            raise ValueError(
+                f"unsupported embedder target {emb.get('target')!r} "
+                "(supported: LabelEncoder, SpatialRescaler, LatentEncoder, "
+                "ClassEmbedder, ConcatTimestepEmbedderND)"
+            )
+        specs.append(EmbedderSpec(f"{n}_{target}", key, float(emb.get("ucg_rate", 0.0)),
+                                  emb_key, bool(emb.get("is_trainable", False))))
+        mods.append(mod)
+    return GeneralConditioner(specs, mods)
 
 
 def build_engine(model_cfg: Dict[str, Any], unet_dtype: torch.dtype = torch.bfloat16,
@@ -230,13 +290,11 @@ def _build_engine(model_cfg, unet_dtype, device, train, remat, attn_impl) -> Eng
     p = model_cfg
     opt_keys = tuple(p.get("opt_keys", ("t_attn", "t_norm")))
     net = _params(p.get("network_config"))
-    _require(int(net.get("ctrl_channels", 0)) == 0, "the ctrl block")
-    _require(net.get("use_label") is None and net.get("adm_in_channels") is None,
-             "label/class embedding")
-    _require(not net.get("use_scale_shift_norm", False), "scale-shift norm")
+    # the JAX build's SpatialTransformer is Dense-only
     _require(net.get("use_linear_in_transformer", True), "conv proj_in/proj_out")
     unet = UNetModel(
         in_channels=net.get("in_channels", 9),
+        ctrl_channels=net.get("ctrl_channels", 0),
         model_channels=net.get("model_channels", 320),
         out_channels=net.get("out_channels", 4),
         num_res_blocks=net.get("num_res_blocks", 2),
@@ -247,6 +305,9 @@ def _build_engine(model_cfg, unet_dtype, device, train, remat, attn_impl) -> Eng
         transformer_depth=net.get("transformer_depth", 1),
         t_context_dim=net.get("t_context_dim"),
         v_context_dim=net.get("v_context_dim"),
+        adm_in_channels=net.get("adm_in_channels"),
+        use_label=net.get("use_label"),
+        use_scale_shift_norm=net.get("use_scale_shift_norm", False),
         dtype=unet_dtype,
         remat=remat,
         attn_impl=attn_impl,
@@ -267,8 +328,14 @@ def _build_engine(model_cfg, unet_dtype, device, train, remat, attn_impl) -> Eng
         embed_dim=vae_p.get("embed_dim", 4), dtype=vae_dtype, attn_impl=attn_impl,
     )
 
-    emb = _check_embedders(_params(p.get("conditioner_config")).get("emb_models", []) or [])
-    le_p = _params(emb["label"])
+    emb_models = _params(p.get("conditioner_config")).get("emb_models", []) or []
+    emb = (_shipped_embedders(emb_models) if emb_models
+           else {"label": {}, "mask_multiplier": 0.5})  # the JAX build's defaults
+    # a general graph's LabelEncoder settings (the JAX builder reads the
+    # first LabelEncoder entry; the dropout belongs to its EmbedderSpec)
+    label_node = emb["label"] if emb else next(
+        (e for e in emb_models if "LabelEncoder" in e.get("target", "")), {})
+    le_p = _params(label_node)
     label_encoder = LabelEncoder(
         max_len=le_p.get("max_len", 12), emb_dim=le_p.get("emb_dim", 2048),
         n_heads=le_p.get("n_heads", 8), n_trans_layers=le_p.get("n_trans_layers", 12),
@@ -290,6 +357,8 @@ def _build_engine(model_cfg, unet_dtype, device, train, remat, attn_impl) -> Eng
     _require("DiscreteSampling" in (loss_p.get("sigma_sampler_config") or {}).get(
         "target", "DiscreteSampling"), "a sigma sampler other than DiscreteSampling")
     samp_p = _params(p.get("sampler_config"))
+    general = None if emb else build_general_conditioner(
+        emb_models, label_encoder, vae, p.get("scale_factor", 0.18215))
 
     engine = DiffusionEngine(
         unet=cast_weights(unet, unet_dtype, keep_fp32=opt_keys if train else ()),
@@ -309,15 +378,17 @@ def _build_engine(model_cfg, unet_dtype, device, train, remat, attn_impl) -> Eng
             ocr_enabled=ocr_enabled,
         ),
         scale_factor=p.get("scale_factor", 0.18215),
-        ucg_rate_label=float(emb["label"].get("ucg_rate", 0.0)),
-        mask_multiplier=emb["mask_multiplier"],
+        ucg_rate_label=float(label_node.get("ucg_rate", 0.0)) if emb else 0.0,
+        mask_multiplier=emb["mask_multiplier"] if emb else 0.5,
         latent_factor=2 ** (len(vae.cfg.ch_mult) - 1),
         parseq=PARSeq() if ocr_enabled else None,
+        general_conditioner=general,
     )
     # convs read NHWC activations through an NCHW view, which is
     # channels_last in memory: keep their weights channels_last too
     engine.to(device=device, memory_format=torch.channels_last)
-    trainable = trainable_mask(engine.named_parameters(), opt_keys) if train else {}
+    embedders = general.trainable_embedders if general is not None else ()
+    trainable = trainable_mask(engine.named_parameters(), opt_keys, embedders) if train else {}
     for name, prm in engine.named_parameters():
         prm.requires_grad_(trainable.get(name, False))
     sampler = SamplerSettings(

@@ -11,7 +11,8 @@ under it (their parameters frozen), so the OCR term's gradient reaches the
 UNet.
 
 `sample` runs the inference path of test.py / demo.py: conditioning (label
-embedding, mask rescale, VAE encode of the masked image), the init-noise
+embedding, mask rescale, VAE encode of the masked image, or the graph's
+GeneralConditioner: its `vector` output goes to the UNet as y), the init-noise
 search (candidates scored by the min-local attention loss after a 2-step
 rollout), the CFG Euler-EDM loop (or, with `encprop_interval` > 1, its
 approximate encoder-propagation form) and the VAE decode. With `aae_enabled`,
@@ -34,7 +35,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .conditioning import Conditioner
+from .conditioning import Conditioner, GeneralConditioner
 from .diffusion import sampling as SP
 from .diffusion.denoiser import Denoiser, DiscreteDenoiser
 from .diffusion.guiders import VanillaCFG
@@ -87,9 +88,13 @@ class DiffusionEngine(nn.Module):
         mask_multiplier: float = 0.125,
         latent_factor: int = 8,
         parseq: Optional[PARSeq] = None,
+        general_conditioner: Optional[GeneralConditioner] = None,
     ):
         super().__init__()
         self.unet, self.vae, self.label_encoder = unet, vae, label_encoder
+        # set for every embedder list but the shipped one, which the fused
+        # `conditioner` runs
+        self.general_conditioner = general_conditioner
         self.parseq = parseq  # the OCR loss's recognizer (None without it)
         self.denoiser = denoiser
         self.discretization = discretization
@@ -115,6 +120,13 @@ class DiffusionEngine(nn.Module):
 
     def conditionings(self, batch: Batch, posterior_eps: Optional[torch.Tensor] = None,
                       force_uc_zero_label: bool = True):
+        """(c, uc) of a batch for sampling: the label embedding (the
+        outputs of the embedders reading label_ids) zeroed in uc under
+        `force_uc_zero_label`, one posterior draw shared by both."""
+        if self.general_conditioner is not None:
+            return self.general_conditioner.get_unconditional_conditioning(
+                batch, posterior_eps,
+                force_uc_zero_keys=("label_ids",) if force_uc_zero_label else ())
         return self.conditioner.get_unconditional_conditioning(batch, posterior_eps,
                                                                force_uc_zero_label)
 
@@ -132,7 +144,7 @@ class DiffusionEngine(nn.Module):
         generator: Optional[torch.Generator] = None,
         image_eps: Optional[torch.Tensor] = None,
         masked_eps: Optional[torch.Tensor] = None,
-        ucg_keep: Optional[torch.Tensor] = None,
+        ucg_keep=None,
         sigma_idx: Optional[torch.Tensor] = None,
         noise: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -140,19 +152,22 @@ class DiffusionEngine(nn.Module):
         seg_mask, label_ids; with the OCR term also r_bbox and
         parseq_label_ids) → (loss, {loss/diff_loss, loss/local_loss[,
         loss/ocr_loss], loss/full_loss}), differentiable in the UNet's
-        parameters.
+        parameters (and in those of the trainable conditioner embedders).
 
         The random draws, each (B, h, w, 4) standard normal with (h, w) the
         latent size unless said otherwise, are taken from the arguments or,
         when None, from `generator` in this order: image_eps (the image
-        posterior), masked_eps (the masked image's posterior), ucg_keep (B,)
-        (label dropout keep mask, Conditioner.draw_ucg_keep), sigma_idx (B,)
-        (indices into the ascending sigma table), noise (the diffusion
-        noise)."""
+        posterior), masked_eps (the masked image's posterior; a
+        GeneralConditioner's LatentEncoders all take it), ucg_keep (the
+        dropout keep masks: (B,) for the label, Conditioner.draw_ucg_keep; a
+        GeneralConditioner's {(embedder, output): (B,)},
+        GeneralConditioner.draw_ucg_keep), sigma_idx (B,) (indices into the
+        ascending sigma table), noise (the diffusion noise)."""
         b, h, w = batch["image"].shape[:3]
         shape = (b, h // self.latent_factor, w // self.latent_factor, 4)
         dev = batch["image"].device
-        conditioner = self.conditioner
+        gc = self.general_conditioner
+        conditioner = self.conditioner if gc is None else gc
         if image_eps is None:
             image_eps = torch.randn(shape, generator=generator, device=dev)
         if masked_eps is None:
@@ -165,7 +180,10 @@ class DiffusionEngine(nn.Module):
             noise = torch.randn(shape, generator=generator, device=dev)
         with torch.no_grad():  # the VAE and the LabelEncoder are frozen
             x = self.encode_first_stage(batch["image"], image_eps)
-            cond = conditioner(batch, masked_eps, ucg_keep=ucg_keep)
+            if gc is None:
+                cond = conditioner(batch, masked_eps, ucg_keep=ucg_keep)
+        if gc is not None:  # under autograd: trainable embedders get their gradient
+            cond = gc(batch, masked_eps, train=True, ucg_keep=ucg_keep)
         ocr_loss_fn = None
         predictor = self.ocr_predictor
         if self.loss_cfg.ocr_enabled and predictor is not None:
@@ -188,10 +206,10 @@ class DiffusionEngine(nn.Module):
         def net(x: torch.Tensor, c_noise: torch.Tensor, cond: Dict[str, Any]):
             if "concat" in cond:
                 x = torch.cat([x, cond["concat"].to(x.dtype)], dim=-1)
-            tc, vc = cond.get("t_crossattn"), cond.get("v_crossattn")
+            tc, vc, y = cond.get("t_crossattn"), cond.get("v_crossattn"), cond.get("vector")
             if method is not None:
-                return method(x, c_noise, tc, vc, ctx_kv=ctx_kv)
-            return self.unet(x, c_noise, tc, vc, capture_attn=capture_attn, ctx_kv=ctx_kv)
+                return method(x, c_noise, tc, vc, y, ctx_kv=ctx_kv)
+            return self.unet(x, c_noise, tc, vc, y, capture_attn=capture_attn, ctx_kv=ctx_kv)
 
         return net
 
@@ -231,7 +249,8 @@ class DiffusionEngine(nn.Module):
         def denoise_reuse(x, sigma, hs):
             def net(_x, c_noise, cond):
                 return self.unet.decode_cached(hs, c_noise, cond.get("t_crossattn"),
-                                               cond.get("v_crossattn"), ctx_kv=ctx_kv), None
+                                               cond.get("v_crossattn"), cond.get("vector"),
+                                               ctx_kv=ctx_kv), None
 
             d, _ = self.denoiser(net, torch.cat([x, x]), torch.cat([sigma, sigma]), c_in)
             return guider(d, sigma)
@@ -405,8 +424,11 @@ class DiffusionEngine(nn.Module):
         encprop_interval > 1 opts into APPROXIMATE encoder-propagation
         sampling of the steps (the full UNet every encprop_interval-th step
         only, `uniform_key_mask`); it is ignored under aae_enabled or
-        detailed, which need every step's maps. The engine does not consult
-        the quality gate: the entry points do (`Predictor` at construction)."""
+        detailed, which need every step's maps, and refused for a UNet with
+        the ctrl block. The engine does not consult the quality gate: the
+        entry points do (`Predictor` at construction)."""
+        if encprop_interval > 1 and not (aae_enabled or detailed):
+            self.unet.refuse_ctrl()
         b, h, w = batch["masked"].shape[:3]
         if latent_hw is None:
             latent_hw = (h // self.latent_factor, w // self.latent_factor)

@@ -32,6 +32,7 @@ Report = Tuple[List[str], List[str], List[str]]  # missing, unexpected, mismatch
 UNET_PREFIX = "model.diffusion_model."
 VAE_PREFIX = "first_stage_model."
 LABEL_PREFIX = "conditioner.embedders.0."
+EMBEDDERS_PREFIX = "conditioner.embedders."
 
 
 def load_from_torch_ckpt(engine: DiffusionEngine, ckpt_path: str,
@@ -41,7 +42,10 @@ def load_from_torch_ckpt(engine: DiffusionEngine, ckpt_path: str,
     "model.diffusion_model.", the VAE under "first_stage_model." (or a bare
     VAE file: "encoder.conv_in*" / "quant_conv.weight"), the LabelEncoder
     under "conditioner.embedders.0.label_embedding*" (or bare
-    "label_embedding*"). Returns each loaded component's report."""
+    "label_embedding*"), and a GeneralConditioner's embedders that have
+    parameters (a ClassEmbedder's table, a remapping SpatialRescaler's conv)
+    under "conditioner.embedders.<index>." as "embedders". Returns each
+    loaded component's report."""
     sd = load_state_dict(ckpt_path)
     out: Dict[str, Report] = {}
     if any(k.startswith(UNET_PREFIX) for k in sd):
@@ -58,6 +62,14 @@ def load_from_torch_ckpt(engine: DiffusionEngine, ckpt_path: str,
     elif any(k.startswith("label_embedding") for k in sd):
         out["label_encoder"] = merge_state_dict(engine.label_encoder, sd, "label_encoder",
                                                 verbose)
+    gc = engine.general_conditioner
+    if gc is not None:  # the embedders with parameters of their own
+        own = {k.split(".")[1] for k in gc.state_dict()}
+        emb = {k: v for k, v in strip_prefix(sd, EMBEDDERS_PREFIX).items()
+               if k.split(".")[0] in own}
+        if emb:
+            out["embedders"] = merge_state_dict(
+                gc, {f"embedders.{k}": v for k, v in emb.items()}, "embedders", verbose)
     return out
 
 
@@ -84,7 +96,8 @@ def init_model(cfgs: Mapping[str, Any], device: torch.device | str = "cuda", see
     checkpoints loaded. The graph is `model_cfg` (a `model.params` dict) or,
     without it, the file `cfgs.model_cfg_path`; the UNet is bf16 unless
     `cfgs.bf16` is false; `train` goes to `build_engine` (fp32 trainable
-    t_attn/t_norm). The engine's initial weights are drawn from `seed`, so
+    t_attn/t_norm, and the trainable embedders). The engine's initial
+    weights, the conditioner embedders' included, are drawn from `seed`, so
     every parameter that no checkpoint sets (the t_attn branches of the
     SD2-inpainting bootstrap) is the same from run to run, as the JAX
     package's `PRNGKey(seed)` init is. When `cfgs.load_ckpt_path` names no

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -129,6 +130,79 @@ def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
     """Nearest-neighbour 2× upsample of NHWC x."""
     b, h, w, c = x.shape
     return x[:, :, None, :, None, :].expand(b, h, 2, w, 2, c).reshape(b, 2 * h, 2 * w, c)
+
+
+def keys_cubic(x: torch.Tensor) -> torch.Tensor:
+    """Keys' cubic kernel (a = −0.5) of |distance| x."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, torch.zeros_like(x), out)
+
+
+def _lanczos(radius: int):
+    def kernel(x: torch.Tensor) -> torch.Tensor:
+        y = radius * torch.sin(math.pi * x) * torch.sin(math.pi * x / radius)
+        safe = torch.where(x != 0, math.pi ** 2 * x * x, torch.ones_like(x))
+        out = torch.where(x > 1e-3, y / safe, torch.ones_like(x))
+        return torch.where(x > radius, torch.zeros_like(x), out)
+
+    return kernel
+
+
+RESIZE_KERNELS = {
+    "linear": lambda x: torch.clamp(1.0 - x.abs(), min=0.0),
+    "cubic": keys_cubic,
+    "lanczos3": _lanczos(3),
+    "lanczos5": _lanczos(5),
+}
+RESIZE_METHODS = {"nearest": "nearest", "linear": "linear", "bilinear": "linear",
+                  "trilinear": "linear", "triangle": "linear", "cubic": "cubic",
+                  "bicubic": "cubic", "tricubic": "cubic", "lanczos3": "lanczos3",
+                  "lanczos5": "lanczos5"}
+
+
+def resize_weights(in_size: int, out_size: int, method: str, antialias: bool,
+                   device=None) -> torch.Tensor:
+    """(in_size, out_size) fp32 weights of one axis of `image_resize`:
+    output pixel o samples the input at (o + 0.5)·in/out − 0.5 under the
+    method's kernel, widened by in/out when downsampling with `antialias`;
+    each column is normalized to sum 1 (jax.image's `compute_weight_mat`
+    with scale out/in and no translation)."""
+    kernel = RESIZE_KERNELS[RESIZE_METHODS[method]]
+    inv_scale = 1.0 / (out_size / in_size)
+    kernel_scale = max(inv_scale, 1.0) if antialias else 1.0
+    sample_f = (torch.arange(out_size, dtype=torch.float32, device=device) + 0.5) * inv_scale - 0.5
+    in_pos = torch.arange(in_size, dtype=torch.float32, device=device)
+    w = kernel(torch.abs(sample_f[None, :] - in_pos[:, None]) / kernel_scale)
+    total = w.sum(dim=0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * float(torch.finfo(torch.float32).eps),
+                    w / torch.where(total != 0, total, torch.ones_like(total)), torch.zeros_like(w))
+    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w))
+
+
+def image_resize(x: torch.Tensor, out_hw, method: str = "bilinear",
+                 antialias: bool = True) -> torch.Tensor:
+    """`jax.image.resize` of NHWC x to (B, out_h, out_w, C): "nearest" takes
+    input pixel floor((o + 0.5)·in/out) (the half-pixel rule, torch's
+    "nearest-exact"); "bilinear" / "bicubic" (Keys, a = −0.5) / "lanczos3" /
+    "lanczos5" are separable weighted sums (`resize_weights`); an axis whose
+    size does not change is left as it is."""
+    if method not in RESIZE_METHODS:
+        raise ValueError(f"unknown resize method {method!r}")
+    kind = RESIZE_METHODS[method]
+    for axis, n in ((1, int(out_hw[0])), (2, int(out_hw[1]))):
+        m = x.shape[axis]
+        if m == n:
+            continue
+        if kind == "nearest":
+            pos = (np.arange(n, dtype=np.float32) + np.float32(0.5)) * np.float32(m) / np.float32(n)
+            idx = torch.from_numpy(np.floor(pos.astype(np.float32)).astype(np.int64))
+            x = x.index_select(axis, idx.to(x.device))
+            continue
+        w = resize_weights(m, n, method, antialias, x.device)
+        x = torch.einsum("bhwc,ho->bowc" if axis == 1 else "bhwc,wo->bhoc", x.float(), w)
+    return x
 
 
 def name_has_key(name: str, keys) -> bool:

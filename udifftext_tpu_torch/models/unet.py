@@ -94,12 +94,16 @@ def unet_plan(
 
 
 class ResBlock(nn.Module):
-    """Residual block (openaimodel.py:149-268) without up/down sampling."""
+    """Residual block (openaimodel.py:149-268) without up/down sampling. With
+    `use_scale_shift_norm` the embedding projects to 2·out_ch (scale, shift)
+    and the output norm becomes GroupNorm(h)·(1 + scale) + shift."""
 
-    def __init__(self, in_ch: int, out_ch: int, emb_ch: int):
+    def __init__(self, in_ch: int, out_ch: int, emb_ch: int, use_scale_shift_norm: bool = False):
         super().__init__()
+        self.use_scale_shift_norm = use_scale_shift_norm
         self.in_layers = nn.ModuleList([GroupNorm32(in_ch), nn.SiLU(), Conv3x3(in_ch, out_ch)])
-        self.emb_layers = nn.ModuleList([nn.SiLU(), Dense(emb_ch, out_ch)])
+        self.emb_layers = nn.ModuleList(
+            [nn.SiLU(), Dense(emb_ch, 2 * out_ch if use_scale_shift_norm else out_ch)])
         self.out_layers = nn.ModuleList(
             [GroupNorm32(out_ch), nn.SiLU(), nn.Identity(), zero_init(Conv3x3(out_ch, out_ch))]
         )
@@ -107,11 +111,19 @@ class ResBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
         h = self.in_layers[2](F.silu(self.in_layers[0](x)))
-        h = h + self.emb_layers[1](F.silu(emb))[:, None, None, :].to(h.dtype)
-        h = self.out_layers[3](F.silu(self.out_layers[0](h)))
+        emb_out = self.emb_layers[1](F.silu(emb))[:, None, None, :].to(h.dtype)
+        if self.use_scale_shift_norm:
+            scale, shift = emb_out.chunk(2, dim=-1)
+            h = F.silu(self.out_layers[0](h) * (1 + scale) + shift)
+        else:
+            h = F.silu(self.out_layers[0](h + emb_out))
+        h = self.out_layers[3](h)
         if self.skip_connection is not None:
             x = self.skip_connection(x)
         return x + h
+
+
+CTRL_WIDTHS = (16, 16, 32, 32, 96, 96, 256)
 
 
 class Downsample(nn.Module):
@@ -133,12 +145,20 @@ class Upsample(nn.Module):
 
 
 class UNetModel(nn.Module):
-    """UnifiedUNetModel without the ctrl block, label embedding or
-    scale-shift norm (the shipped graph uses none of them)."""
+    """UnifiedUNetModel. Options the shipped graph leaves off:
+    `ctrl_channels` > 0 adds the ControlNet-style hint encoder (`ctrl_block`:
+    seven 3×3 convs of widths CTRL_WIDTHS, each followed by SiLU, then a
+    zero-initialized conv to model_channels, at `ctrl_block.14`), which
+    reads x[..., in_channels:in_channels + ctrl_channels] and is added after
+    input block 0; `use_label` adds `label_emb` (two Dense layers over `y`
+    with `adm_in_channels` inputs, at `label_emb.0.0` / `label_emb.0.2`) to
+    the time embedding; `use_scale_shift_norm` switches every ResBlock to
+    the scale-shift norm."""
 
     def __init__(
         self,
         in_channels: int = 9,
+        ctrl_channels: int = 0,
         model_channels: int = 320,
         out_channels: int = 4,
         num_res_blocks: int = 2,
@@ -149,6 +169,9 @@ class UNetModel(nn.Module):
         transformer_depth: int = 1,
         t_context_dim: Optional[int] = 2048,
         v_context_dim: Optional[int] = None,
+        adm_in_channels: Optional[int] = None,
+        use_label: Optional[int] = None,
+        use_scale_shift_norm: bool = False,
         dtype: torch.dtype = torch.float32,
         remat: bool = False,
         attn_impl: str = "auto",
@@ -156,6 +179,9 @@ class UNetModel(nn.Module):
         super().__init__()
         self.attn_impl = attn_impl  # "auto" | "plain" | "flash", for every transformer block
         self.in_channels = in_channels
+        self.ctrl_channels = int(ctrl_channels)
+        self.use_label = use_label
+        self.adm_in_channels = adm_in_channels
         self.model_channels = model_channels
         self.channel_mult = tuple(channel_mult)
         self.transformer_depth = transformer_depth
@@ -173,7 +199,7 @@ class UNetModel(nn.Module):
             if spec.kind == "conv":
                 return Conv3x3(in_channels, spec.out_ch)
             if spec.kind == "res":
-                return ResBlock(spec.in_ch, spec.out_ch, time_dim)
+                return ResBlock(spec.in_ch, spec.out_ch, time_dim, use_scale_shift_norm)
             if spec.kind == "attn":
                 return SpatialTransformer(spec.in_ch, spec.heads, spec.dim_head,
                                           transformer_depth, t_context_dim, v_context_dim,
@@ -187,6 +213,18 @@ class UNetModel(nn.Module):
         self.time_embed = nn.Sequential(
             Dense(model_channels, time_dim), nn.SiLU(), Dense(time_dim, time_dim)
         )
+        if use_label is not None:
+            if adm_in_channels is None:
+                raise ValueError("use_label needs adm_in_channels")
+            self.label_emb = nn.Sequential(nn.Sequential(
+                Dense(adm_in_channels, time_dim), nn.SiLU(), Dense(time_dim, time_dim)))
+        if self.ctrl_channels > 0:
+            layers: List[nn.Module] = []
+            ch = self.ctrl_channels
+            for w in CTRL_WIDTHS:
+                layers += [Conv3x3(ch, w), nn.SiLU()]
+                ch = w
+            self.ctrl_block = nn.Sequential(*layers, zero_init(Conv3x3(ch, model_channels)))
         self.input_blocks = nn.ModuleList(
             [nn.ModuleList([make(s) for s in blk]) for blk in self.plan.input_blocks]
         )
@@ -245,8 +283,12 @@ class UNetModel(nn.Module):
                 h = m(h)
         return h
 
-    def _prepare(self, timesteps, t_context, v_context):
+    def _prepare(self, timesteps, t_context, v_context, y):
         emb = self.time_embed(timestep_embedding(timesteps, self.model_channels).to(self.dtype))
+        if self.use_label is not None:
+            if y is None:
+                raise ValueError("this UNet has a label embedding (use_label): pass y")
+            emb = emb + self.label_emb(y.to(self.dtype))
         if t_context is not None:
             t_context = t_context.to(self.dtype)
         if v_context is not None:
@@ -258,10 +300,15 @@ class UNetModel(nn.Module):
         """Input blocks → the skip activations hs; hs[-1] feeds the middle
         block."""
         h = x.to(self.dtype)
+        if self.ctrl_channels > 0:
+            h, ctrl = (h[..., :self.in_channels],
+                       h[..., self.in_channels:self.in_channels + self.ctrl_channels])
         hs = []
-        for prefix, mods, specs in list(self._blocks())[:len(self.input_blocks)]:
+        for i, (prefix, mods, specs) in enumerate(list(self._blocks())[:len(self.input_blocks)]):
             h = self._apply_block(prefix, mods, specs, h, emb, t_context, v_context,
                                   capture_attn, attn_maps, ctx_kv)
+            if i == 0 and self.ctrl_channels > 0:
+                h = h + self.ctrl_block(ctrl)
             hs.append(h)
         return hs
 
@@ -287,15 +334,21 @@ class UNetModel(nn.Module):
         timesteps: torch.Tensor,
         t_context: Optional[torch.Tensor] = None,
         v_context: Optional[torch.Tensor] = None,
+        y: Optional[torch.Tensor] = None,
         capture_attn: bool = False,
         ctx_kv: Optional[Dict[str, Any]] = None,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """x (B, H, W, in_channels), timesteps (B,) → ((B, H, W, out), maps)."""
-        emb, t_context, v_context = self._prepare(timesteps, t_context, v_context)
+        """x (B, H, W, in_channels + ctrl_channels), timesteps (B,), y (B,
+        adm_in_channels) with use_label → ((B, H, W, out), maps)."""
+        emb, t_context, v_context = self._prepare(timesteps, t_context, v_context, y)
         attn_maps: Dict[str, torch.Tensor] = {}
         hs = self._run_encoder(x, emb, t_context, v_context, capture_attn, attn_maps, ctx_kv)
         h = self._run_decoder(hs, emb, t_context, v_context, capture_attn, attn_maps, ctx_kv)
         return h, attn_maps
+
+    def refuse_ctrl(self) -> None:
+        if self.ctrl_channels > 0:
+            raise NotImplementedError("encoder propagation: the ctrl block is not supported")
 
     def forward_cached(
         self,
@@ -303,13 +356,16 @@ class UNetModel(nn.Module):
         timesteps: torch.Tensor,
         t_context: Optional[torch.Tensor] = None,
         v_context: Optional[torch.Tensor] = None,
+        y: Optional[torch.Tensor] = None,
         ctx_kv: Optional[Dict[str, Any]] = None,
     ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
         """`forward` without map capture that also returns the encoder skip
         stack, for encoder-propagation sampling ("Faster Diffusion", arXiv
         2312.09608: encoder features vary little across adjacent noise
-        levels). Pair with `decode_cached`."""
-        emb, t_context, v_context = self._prepare(timesteps, t_context, v_context)
+        levels). Pair with `decode_cached`. A UNet with the ctrl block
+        refuses it, as the JAX build does."""
+        self.refuse_ctrl()
+        emb, t_context, v_context = self._prepare(timesteps, t_context, v_context, y)
         hs = self._run_encoder(x, emb, t_context, v_context, False, {}, ctx_kv)
         return self._run_decoder(hs, emb, t_context, v_context, False, {}, ctx_kv), tuple(hs)
 
@@ -319,10 +375,12 @@ class UNetModel(nn.Module):
         timesteps: torch.Tensor,
         t_context: Optional[torch.Tensor] = None,
         v_context: Optional[torch.Tensor] = None,
+        y: Optional[torch.Tensor] = None,
         ctx_kv: Optional[Dict[str, Any]] = None,
     ) -> torch.Tensor:
         """The middle and output blocks only, on a `forward_cached` skip
         stack with the current timestep's embedding (the approximation of
         encoder propagation: the input blocks are skipped)."""
-        emb, t_context, v_context = self._prepare(timesteps, t_context, v_context)
+        self.refuse_ctrl()
+        emb, t_context, v_context = self._prepare(timesteps, t_context, v_context, y)
         return self._run_decoder(hs, emb, t_context, v_context, False, {}, ctx_kv)

@@ -34,6 +34,11 @@ class DiagonalGaussian:
     def mode(self) -> torch.Tensor:
         return self.mean
 
+    def kl(self) -> torch.Tensor:
+        """KL(q ‖ N(0, 1)) of each sample, (B,)."""
+        return 0.5 * torch.sum(self.mean ** 2 + torch.exp(self.logvar) - 1.0 - self.logvar,
+                               dim=(1, 2, 3))
+
 
 class VAEResnetBlock(nn.Module):
     def __init__(self, in_ch: int, out_ch: int):

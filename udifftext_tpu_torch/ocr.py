@@ -27,14 +27,8 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from .models.layers import keys_cubic
 from .models.parseq import PARSeq, ParseqTokenizer
-
-
-def keys_cubic(x: torch.Tensor) -> torch.Tensor:
-    """Keys' cubic kernel (a = −0.5) of |distance| x."""
-    out = ((1.5 * x - 2.5) * x) * x + 1.0
-    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
-    return torch.where(x >= 2.0, torch.zeros_like(x), out)
 
 
 def scale_translate_weights(in_size: int, out_size: int, scale: torch.Tensor,

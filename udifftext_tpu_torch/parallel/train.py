@@ -2,7 +2,8 @@
 `data` mesh is one process per card, `parallel/dist.py`).
 
   - Selective trainability: only UNet parameters whose name has a segment
-    containing one of `opt_keys` (t_attn, t_norm) train; `build_engine(...,
+    containing one of `opt_keys` (t_attn, t_norm) train, and the parameters
+    of the conditioner embedders marked is_trainable; `build_engine(...,
     train=True)` marks them (requires_grad) and keeps them in fp32. Frozen
     parameters get no gradient, no optimizer state and no update.
   - AdamW (b1 0.9, b2 0.999, eps 1e-8, weight decay 0.01) with the LR set
@@ -38,14 +39,24 @@ from . import dist
 LossFn = Callable[[Any], Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
 
 TRAINABLE_TOP = "unet"  # only the UNet trains, as in the reference
+EMBEDDERS = "general_conditioner.embedders."  # a GeneralConditioner's embedders
 
 
 def trainable_mask(named_params: Iterable[Tuple[str, torch.Tensor]],
-                   opt_keys: Sequence[str]) -> Dict[str, bool]:
+                   opt_keys: Sequence[str],
+                   trainable_embedders: Sequence[str] = ()) -> Dict[str, bool]:
     """name → True where the top-level module is the UNet and a segment of
-    the dotted name contains one of `opt_keys`."""
-    return {name: name.split(".")[0] == TRAINABLE_TOP and name_has_key(name, opt_keys)
-            for name, _ in named_params}
+    the dotted name contains one of `opt_keys`, and for every parameter of
+    the conditioner embedders named in `trainable_embedders`
+    ("<index>_<target>", the embedders with is_trainable)."""
+    indices = {name.split("_", 1)[0] for name in trainable_embedders}
+
+    def trains(name: str) -> bool:
+        if name.startswith(EMBEDDERS):
+            return name[len(EMBEDDERS):].split(".", 1)[0] in indices
+        return name.split(".")[0] == TRAINABLE_TOP and name_has_key(name, opt_keys)
+
+    return {name: trains(name) for name, _ in named_params}
 
 
 def epoch_decay_schedule(base_lr: float, steps_per_epoch: int,

@@ -70,20 +70,24 @@ class Predictor:
         self.detailed = bool(detailed)
         self.noise_search_batched = bool(noise_search_batched)
         self.noise_search_max_rows = int(noise_search_max_rows)
+        # a GeneralConditioner's embedders may read more keys (e.g. a
+        # ClassEmbedder's class ids)
+        gc = getattr(engine, "general_conditioner", None)
+        self.array_keys = tuple(dict.fromkeys(ARRAY_KEYS + (gc.input_keys if gc is not None else ())))
 
     def array_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """The batch's array fields as tensors on the engine's device (uint8
         ones still uint8)."""
         out = {}
         dev = self.engine.device
-        for k in ARRAY_KEYS:
+        for k in self.array_keys:
             v = batch.get(k)
             if v is None or (isinstance(v, np.ndarray) and v.dtype == object):
                 continue
             out[k] = torch.as_tensor(v).to(dev)
         if not out:
             raise ValueError(f"batch carries none of the predictor's array keys "
-                             f"{ARRAY_KEYS} — got {sorted(batch)}")
+                             f"{self.array_keys} — got {sorted(batch)}")
         if "image" in out and out["image"].dtype == torch.uint8:
             if "mask" not in out:
                 raise ValueError(

@@ -17,7 +17,8 @@ Under torchrun each process takes its share of every micro-batch, and the
 gradients are averaged once per optimizer step (`parallel/dist.py`).
 
 `train(cfgs, batches, bundle)` is the loop: AdamW with the per-epoch ×0.95
-LR decay over the t_attn/t_norm branches, `lightning.accumulate_grad_batches`
+LR decay over the t_attn/t_norm branches (and the embedders the graph marks
+is_trainable), `lightning.accumulate_grad_batches`
 micro-batches per update (a group left incomplete at an epoch's end is
 dropped), `lightning.max_epochs` epochs, every loss component logged every
 `log_every` updates (stdout and `train_metrics.{csv,jsonl}` under cfgs'
@@ -26,7 +27,7 @@ exists so that a short run can read each update. `batches` is a sized,
 re-iterable collection of numpy batches with the keys of BATCH_KEYS (image,
 masked, mask in [-1, 1] / {0, 1} NHWC; seg (B, H, W, L); seg_mask (B, L);
 label_ids (B, L); for the OCR term r_bbox (B, 4) and parseq_label_ids
-(B, 27)), one micro-batch each, as `data.loader.DataLoader` yields them.
+(B, 27)) and the input keys of the graph's other embedders, one micro-batch each, as `data.loader.DataLoader` yields them.
 The loss's draws come from one generator seeded by (seed, rank).
 
 With a `ckpt_dir`, the loop resumes from its newest checkpoint (the step
@@ -46,7 +47,7 @@ import contextlib
 import os
 import random
 import time
-from typing import Any, Dict, List, Mapping, Optional
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -64,9 +65,17 @@ BATCH_KEYS = ("image", "masked", "mask", "seg", "seg_mask", "label_ids", "r_bbox
 CKPT_SUBDIR = "udifftext_tpu_torch"  # the JAX build writes its own format under "udifftext_tpu"
 
 
-def to_device(batch: Mapping[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
-    """The batch's BATCH_KEYS as tensors on `device`."""
-    return {k: torch.as_tensor(np.asarray(batch[k])).to(device) for k in BATCH_KEYS if k in batch}
+def batch_keys(engine) -> Tuple[str, ...]:
+    """BATCH_KEYS and the input keys of the engine's GeneralConditioner
+    (e.g. a ClassEmbedder's class ids), when it has one."""
+    gc = getattr(engine, "general_conditioner", None)
+    return tuple(dict.fromkeys(BATCH_KEYS + (gc.input_keys if gc is not None else ())))
+
+
+def to_device(batch: Mapping[str, Any], device: torch.device,
+              keys: Sequence[str] = BATCH_KEYS) -> Dict[str, torch.Tensor]:
+    """The batch's `keys` as tensors on `device`."""
+    return {k: torch.as_tensor(np.asarray(batch[k])).to(device) for k in keys if k in batch}
 
 
 def save_image_logs(engine, batch: Dict[str, torch.Tensor], generator: torch.Generator,
@@ -136,6 +145,7 @@ def train(cfgs: Mapping[str, Any], batches, bundle: EngineBundle, seed: Optional
     img_freq = int(cfgs.get("log_images_freq", 0) or 0)
     save_freq = max(int(cfgs.get("save_ckpt_freq", 1)), 1)
     gen = torch.Generator(dev).manual_seed(dist.rank_seed(seed, rank))
+    keys = batch_keys(engine)
 
     def loss_fn(batch):
         return engine.loss(batch, gen)
@@ -149,7 +159,7 @@ def train(cfgs: Mapping[str, Any], batches, bundle: EngineBundle, seed: Optional
                 if len(micro) < accum:
                     continue
                 with profiler.profile("host_to_device"):
-                    dev_micro = [to_device(b, dev) for b in micro]
+                    dev_micro = [to_device(b, dev, keys) for b in micro]
                 micro = []
                 with profiler.profile("train_step"):
                     loss, aux = train_step(state, dev_micro, loss_fn)

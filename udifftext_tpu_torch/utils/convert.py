@@ -65,6 +65,13 @@ def _unet_path(mods: List[str]) -> List[str]:
     head, rest = mods[0], mods[1:]
     if head in ("time_embed_0", "time_embed_2"):
         return ["time_embed", head[-1]]
+    if head in ("label_embed_0", "label_embed_2"):
+        return ["label_emb", "0", head[-1]]
+    if head == "ctrl_conv_out":  # the zero conv after the seven convs and their SiLUs
+        return ["ctrl_block", "14"]
+    m = re.fullmatch(r"ctrl_conv_(\d+)", head)
+    if m:
+        return ["ctrl_block", str(2 * int(m.group(1)))]
     if head == "out_norm":
         return ["out", "0"]
     if head == "out_conv":
@@ -226,12 +233,49 @@ def lpips_from_jax(params) -> Dict[str, torch.Tensor]:
     return sd
 
 
+_EMBEDDER_MODULES = {"Embed_0": "embedding", "Conv_0": "channel_mapper"}
+
+
+def embedders_from_jax(params) -> Dict[str, torch.Tensor]:
+    """JAX `params["embedders"]` ({"<index>_<target>": params}) → a
+    `conditioning.GeneralConditioner` state dict: a ClassEmbedder's table
+    at `embedders.<index>.embedding.weight`, a remapping SpatialRescaler's
+    conv at `embedders.<index>.channel_mapper.weight`."""
+    sd = {}
+    for name, sub in params.items():
+        index = name.split("_", 1)[0]
+        for path, v in _flatten(sub.get("params", sub)):
+            leaf, t = _tensor(path[-1], v)
+            sd[".".join(["embedders", index, _EMBEDDER_MODULES[path[0]], leaf])] = t
+    return sd
+
+
+def _open_clip_path(mods: List[str]) -> List[str]:
+    m = re.fullmatch(r"resblocks_(\d+)", mods[0]) if mods else None
+    if m is None:
+        return mods  # token_embedding, ln_final, ln_pre, ln_post, conv1
+    rest = mods[1:]
+    if rest[0] in ("c_fc", "c_proj"):
+        rest = ["mlp"] + rest
+    return ["transformer", "resblocks", m.group(1)] + rest
+
+
+def open_clip_from_jax(params) -> Dict[str, torch.Tensor]:
+    """A JAX OpenCLIP tower's params (`models/open_clip.py`, text or
+    vision) → the port's tower state dict, in open_clip's own key layout
+    (`transformer.resblocks.0.attn.in_proj_weight`, `ln_final.weight`,
+    `text_projection`, `conv1.weight`, ...)."""
+    return _convert(params, _open_clip_path)
+
+
 def engine_from_jax(params: Dict[str, dict]) -> Dict[str, torch.Tensor]:
-    """{"unet", "vae", "label_encoder"[, "parseq"]} JAX params → a
-    `DiffusionEngine` state dict."""
+    """{"unet", "vae", "label_encoder"[, "parseq"][, "embedders"]} JAX
+    params → a `DiffusionEngine` state dict."""
     sd = {}
     for name, fn in (("unet", unet_from_jax), ("vae", vae_from_jax),
-                     ("label_encoder", label_encoder_from_jax), ("parseq", parseq_from_jax)):
-        if name in params:
-            sd.update({f"{name}.{k}": v for k, v in fn(params[name]).items()})
+                     ("label_encoder", label_encoder_from_jax), ("parseq", parseq_from_jax),
+                     ("general_conditioner", embedders_from_jax)):
+        key = "embedders" if name == "general_conditioner" else name
+        if key in params:
+            sd.update({f"{name}.{k}": v for k, v in fn(params[key]).items()})
     return sd
