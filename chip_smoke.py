@@ -234,7 +234,27 @@ matplotlib, imageio or safetensors). Phases, each printed on its own line:
    1024, 77 tokens; penultimate and EOT-pooled) and vision tower (32 ×
    1280, a 256² image resized to 224²; tokens and pooled), fp32, B=2,
    seeded random weights: card against CPU within 1e-3 relative L2, ms per
-   call. Phase 16 prints its own seconds.
+   call. Phase 16 prints its own seconds;
+17. the VAE's adversarial training (no kernel on the path: the fp32 VAE
+   runs cuDNN convs, GroupNorm32 and plain attention): `make_vae_train_steps`
+   on builders.TEXTDESIGN_SD_2's first stage (fp32) with taming's default
+   NLayerDiscriminator (ndf 64, 3 layers) and LPIPSAlex as the perceptual
+   net, seeded weights, B=2 at 256², Adam: one ae_step and one disc_step,
+   which fail on non-finite losses, a VAE parameter that did not move in
+   ae_step, a discriminator parameter or buffer that ae_step changed, a VAE
+   tensor that disc_step changed or a discriminator parameter it did not
+   move; then two more of each for the s per step of each half; the peak
+   memory from a reset counter;
+18. the STR hub (no kernel on the path): each of parseq, parseq-tiny,
+   vitstr, abinet, trba and crnn at strhub's base configuration, fp32,
+   seeded weights (`randomize_parameters`, saved in strhub's layout and read by
+   `create_model`), a forward on 64 synthetic 32×128
+   crops: card against CPU on the first 4 rows within 1e-2 relative L2
+   (cuDNN convs in TF32), the share of greedy ids that agree, ms per
+   forward (CUDA events, median of 5); then two PARSeq-base
+   permuted-training steps (6 orderings, backward, AdamW) with a finite
+   loss and gradients, each step's seconds. Phases 17-18 print their
+   seconds.
 
 Beside every kernel's time stand its plain version's, its bound (the least
 time the card could take: the larger of bytes moved once over 3.35 TB/s and
@@ -245,9 +265,9 @@ never calls it.
 
 Each path (demo, AAE, training, OCR-loss training, glue probe, ResBlock
 probe, variants probe, serving, eval CLI, train CLI, encoder propagation at
-interval 2, the other samplers, pretraining, the metrics, the options demo
-and the options fine-tuning) runs with the launch counts set to 0 just
-before it and read just after.
+interval 2, the other samplers, pretraining, the metrics, the options demo,
+the options fine-tuning, the VAE GAN steps and the STR hub) runs with the
+launch counts set to 0 just before it and read just after.
 Any failure exits non-zero. The
 second-to-last line is the kernels' JSON record: each kernel's `launches`
 counts the path named by its `launches_path` (training for the kernels the
@@ -1041,6 +1061,190 @@ def conditioning_options(dev, card: str, kernel_fns, expected, by_path, demo_s: 
     torch.cuda.empty_cache()
     log(f"[options] phase 16 in {time.perf_counter() - t_phase:.1f} s")
 
+
+
+def vae_gan(dev, card: str, kernel_fns, expected, by_path) -> float:
+    """Phase 17: one ae_step and one disc_step, then two more of each for
+    their times, on the shipped VAE (fp32) with taming's default
+    discriminator and LPIPSAlex as the perceptual net, B=2 at 256², seeded
+    weights. Returns the phase's seconds."""
+    import numpy as np
+    import torch
+
+    from udifftext_tpu_torch.builders import TEXTDESIGN_SD_2, randomize_parameters
+    from udifftext_tpu_torch.diffusion import vae_loss
+    from udifftext_tpu_torch.models.discriminator import NLayerDiscriminator
+    from udifftext_tpu_torch.models.lpips import LPIPSAlex
+    from udifftext_tpu_torch.models.vae import AutoencoderKL, DDConfig
+
+    t_phase = time.perf_counter()
+    vae_p = TEXTDESIGN_SD_2["first_stage_config"]["params"]
+    dd = {k: (tuple(v) if isinstance(v, list) else v) for k, v in vae_p["ddconfig"].items()
+          if k in {f.name for f in dataclasses.fields(DDConfig)}}
+    torch.manual_seed(17)
+    with torch.device(dev):
+        vae = randomize_parameters(AutoencoderKL(DDConfig(**dd), vae_p["embed_dim"]), 17)
+        disc = NLayerDiscriminator()  # taming's default: ndf 64, 3 layers
+        lpips = randomize_parameters(LPIPSAlex(), 18).eval().requires_grad_(False)
+    for m in lpips.modules():  # lpips' lin layers weigh squared differences: keep them positive
+        if type(m).__name__ == "NetLinLayer":
+            m.model[1].weight.data.abs_()
+
+    def perceptual(a, b):
+        return lpips(a.permute(0, 3, 1, 2), b.permute(0, 3, 1, 2))
+
+    rs = np.random.RandomState(17)
+    yy, xx = np.mgrid[0:256, 0:256].astype(np.float32) / 256
+    x = np.stack([np.sin(6 * xx + f_) * np.cos(4 * yy - f_) for f_ in rs.uniform(0, 3, (2, 3))
+                  .reshape(-1)], -1).reshape(256, 256, 2, 3).transpose(2, 0, 1, 3)
+    x = torch.as_tensor(np.clip(x + 0.05 * rs.standard_normal(x.shape), -1, 1)
+                        .astype(np.float32), device=dev)
+    with torch.no_grad():
+        lat = vae.encode_moments(x).shape[:-1] + (vae_p["embed_dim"],)
+    gen = torch.Generator(dev).manual_seed(17)
+    eps = [torch.randn(lat, generator=gen, device=dev) for _ in range(3)]
+    cfg = vae_loss.VAEGanLossConfig(disc_start=0, disc_weight=0.5, kl_weight=1e-6)
+    ae_step, disc_step = vae_loss.make_vae_train_steps(
+        cfg, vae, disc, torch.optim.Adam(vae.parameters(), lr=4.5e-6, betas=(0.5, 0.9)),
+        torch.optim.Adam(disc.parameters(), lr=4.5e-6, betas=(0.5, 0.9)), perceptual)
+    state = {"logvar": torch.zeros((), device=dev), "step": 0}
+
+    def snap(module):
+        return {k: v.detach().clone() for k, v in module.state_dict().items()}
+
+    reset(*kernel_fns)
+    held = torch.cuda.memory_allocated(dev) / 2**30
+    torch.cuda.reset_peak_memory_stats(dev)
+    vae0, disc0 = snap(vae), snap(disc)
+    loss, log_ae = ae_step(state, x, eps[0])
+    vae1, disc1 = snap(vae), snap(disc)
+    d_loss, log_d = disc_step(state, x, eps[0])
+    vae2, disc2 = snap(vae), snap(disc)
+    still = [k for k in dict(vae.named_parameters()) if torch.equal(vae0[k], vae1[k])]
+    disc_moved = [k for k in disc0 if not torch.equal(disc0[k], disc1[k])]
+    vae_moved = [k for k in vae1 if not torch.equal(vae1[k], vae2[k])]
+    disc_still = [k for k in dict(disc.named_parameters()) if torch.equal(disc1[k], disc2[k])]
+    logs = {**log_ae, **log_d}
+    bad = [k for k, v in logs.items() if not bool(torch.isfinite(v).all())]
+    times = {"ae": [], "disc": []}
+    for i in (1, 2):
+        for name, step in (("ae", ae_step), ("disc", disc_step)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(state, x, eps[i])
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+    launches = by_path["vae_gan"] = counts(*kernel_fns)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    n_vae = sum(p.numel() for p in vae.parameters()) / 1e6
+    n_disc = sum(p.numel() for p in disc.parameters()) / 1e6
+    log(f"[vae_gan] {card}: the shipped VAE ({n_vae:.1f} M parameters, fp32) against taming's "
+        f"NLayerDiscriminator ({n_disc:.2f} M, ndf 64, 3 layers), LPIPSAlex perceptual, B=2, "
+        f"256²: ae_step {[round(t_, 4) for t_ in times['ae']]} s, disc_step "
+        f"{[round(t_, 4) for t_ in times['disc']]} s (steps 2 and 3; host clock to a "
+        f"synchronize); peak device memory {peak:.2f} GiB ({held:.2f} GiB allocated before); "
+        f"first step: loss {float(loss):.4f}, d_loss {float(d_loss):.4f}, "
+        + ", ".join(f"{k.split('/')[-1]} {float(v):.4g}" for k, v in logs.items())
+        + f"; launches {launches}")
+    log(f"[vae_gan] ae_step: {len(vae0) - len(still)} of {len(dict(vae.named_parameters()))} "
+        f"VAE parameters moved, {len(disc_moved)} discriminator tensors changed (parameters and "
+        f"running statistics); disc_step: {len(vae_moved)} VAE tensors changed, "
+        f"{len(disc_still)} discriminator parameters did not move, num_batches_tracked "
+        f"{int(disc2['main.3.num_batches_tracked'])}")
+    if bad or not bool(torch.isfinite(loss)) or not bool(torch.isfinite(d_loss)):
+        fail(f"vae_gan: non-finite losses {bad}")
+    if still or disc_moved or vae_moved or disc_still:
+        fail(f"vae_gan: VAE still {still[:3]}, discriminator changed by ae_step {disc_moved[:3]}, "
+             f"VAE changed by disc_step {vae_moved[:3]}, discriminator still {disc_still[:3]}")
+    if int(disc2["main.3.num_batches_tracked"]) != 2 or launches != expected():
+        fail(f"vae_gan: running statistics or launches {launches}")
+    del vae, disc, lpips, state, vae0, vae1, vae2, disc0, disc1, disc2
+    torch.cuda.empty_cache()
+    return time.perf_counter() - t_phase
+
+
+STR_MODELS = ("parseq", "parseq-tiny", "vitstr", "abinet", "trba", "crnn")
+
+
+def str_hub_phase(dev, card: str, kernel_fns, expected, by_path) -> float:
+    """Phase 18: each STR hub model at its base configuration, fp32, on 64
+    images of 32×128 (card against CPU on the first 4 rows, ms per
+    forward), then one PARSeq-base permuted-training step. Returns the
+    phase's seconds."""
+    import numpy as np
+    import torch
+
+    from udifftext_tpu_torch.builders import randomize_parameters
+    from udifftext_tpu_torch.models import parseq as pq
+    from udifftext_tpu_torch.models.str_hub import build_model, create_model
+
+    t_phase = time.perf_counter()
+    rs = np.random.RandomState(18)
+    yy, xx = np.mgrid[0:32, 0:128].astype(np.float32)
+    imgs = np.stack([np.sin(xx / rs.uniform(2, 9) + rs.uniform(0, 6))[..., None]
+                     * np.cos(yy / rs.uniform(2, 9))[..., None] * rs.uniform(-1, 1, 3)
+                     for _ in range(64)]).astype(np.float32)
+    imgs = np.clip(imgs + 0.1 * rs.standard_normal(imgs.shape), -1, 1).astype(np.float32)
+    x = torch.as_tensor(imgs, device=dev)
+    work = tempfile.TemporaryDirectory(prefix="udt_str_")
+    paths = {}
+    for i, name in enumerate(STR_MODELS):  # seeded strhub-layout files (`model.` prefix)
+        src = randomize_parameters(build_model(name), 18 + i, keep=("localization_fc2.bias",))
+        paths[name] = f"{work.name}/{name}.pt"
+        torch.save({f"model.{k}": v for k, v in src.state_dict().items()}, paths[name])
+    del src
+    reset(*kernel_fns)
+    for name in STR_MODELS:
+        cpu = create_model(name, paths[name], device="cpu")
+        card_m = create_model(name, paths[name], device=dev)
+        with torch.no_grad():
+            got = card_m(x)
+            want = cpu(x[:4].cpu())
+            ms = time_ms(lambda: card_m(x), reps=5)
+        err = rel_l2(got[:4], want)
+        agree = float((got[:4].argmax(-1).cpu() == want.argmax(-1)).float().mean())
+        n_par = sum(p.numel() for p in cpu.parameters()) / 1e6
+        log(f"[str] {card}: {name} ({n_par:.1f} M parameters, fp32) {ms:.3f} ms per forward of "
+            f"64 images of 32×128 (CUDA events, median of 5), logits {tuple(got.shape)}; "
+            f"card against CPU on 4 rows: relative L2 {err:.2e} (tolerance 1e-2: cuDNN convs in "
+            f"TF32), greedy ids agree {agree:.3f}")
+        if not bool(torch.isfinite(got).all()) or not err <= 1e-2:
+            fail(f"STR model {name}: card and CPU disagree ({err}) or non-finite logits")
+        del cpu, card_m, got
+    torch.cuda.empty_cache()
+
+    # one PARSeq-base permuted-training step: 6 orderings, backward, AdamW
+    model = create_model("parseq", paths["parseq"], device=dev).train()
+    work.cleanup()
+    tok = pq.ParseqTokenizer()
+    words = ["".join(rs.choice(list(pq.PARSEQ_CHARSET), rs.randint(1, 26))) for _ in range(64)]
+    ids = torch.as_tensor(tok.encode(words, 25), device=dev)
+    opt = torch.optim.AdamW(model.parameters(), lr=7e-4, weight_decay=0.0)
+    secs = []
+    for step in range(2):
+        perms = pq.gen_tgt_perms(np.random.default_rng(step), 25, perm_num=6)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss = pq.parseq_training_loss(model, x, ids, perms)
+        loss.backward()
+        grads_ok = all(bool(torch.isfinite(p.grad).all()) for p in model.parameters()
+                       if p.grad is not None)
+        opt.step()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        if not bool(torch.isfinite(loss)) or not grads_ok:
+            fail(f"PARSeq training step {step}: loss {float(loss)}, gradients finite {grads_ok}")
+    launches = by_path["str"] = counts(*kernel_fns)
+    log(f"[str] PARSeq-base permuted-training step (B=64, 6 orderings, labels of 1-25 "
+        f"characters, AdamW): {[round(s_, 4) for s_ in secs]} s (the first builds the cuBLAS "
+        f"handles), loss {loss.item():.4f}, gradients finite; launches on the STR path "
+        f"{launches}")
+    if launches != expected():
+        fail(f"the STR path launched a kernel: {launches}")
+    del model, opt
+    torch.cuda.empty_cache()
+    return time.perf_counter() - t_phase
 
 
 def main() -> None:
@@ -2953,6 +3157,12 @@ def main() -> None:
     # fine-tuning steps with trainable embedders, the OpenCLIP towers, and
     # encoder propagation refusing the ctrl block
     conditioning_options(dev, card, kernel_fns, expected, by_path, demo_s, ab_tol)
+
+    # 17. the VAE's adversarial training steps; 18. the STR hub (no kernel on
+    # either path)
+    gan_s = vae_gan(dev, card, kernel_fns, expected, by_path)
+    str_s = str_hub_phase(dev, card, kernel_fns, expected, by_path)
+    log(f"[phases] 17 (VAE GAN) {gan_s:.1f} s, 18 (STR hub) {str_s:.1f} s")
 
     kernels = []
     for name, src, replaces, key, path in (

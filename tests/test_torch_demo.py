@@ -107,3 +107,15 @@ def test_demo_cli_one_shot(demo_dir, capsys):
         assert f"[{name}] merged with 0 missing, 0 unexpected, 0 mismatched keys" in printed
     loaded = np.asarray(Image.open(demo_dir / "loaded.png"))
     assert loaded.shape == (32, 32, 3) and not np.array_equal(loaded, out)
+
+
+def test_demo_cli_aae_writes_the_gif(demo_dir, capsys):
+    """--aae prints the per-step local losses and, as the JAX demo does,
+    writes the intermediate steps to ./temp/inters/demo.gif."""
+    demo.main(["--image", "in.png", "--mask", "mask.png", "--text", "ab", "--out", "aae.png",
+               "--aae", "--device", "cpu"])
+    printed = capsys.readouterr().out
+    assert "Local losses: [" in printed
+    gif = Image.open(demo_dir / "temp" / "inters" / "demo.gif")
+    assert gif.format == "GIF" and gif.size == (32, 32)
+    assert np.asarray(Image.open(demo_dir / "aae.png")).shape == (32, 32, 3)

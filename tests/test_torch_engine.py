@@ -296,8 +296,38 @@ bench = serve_bench.run(max_batch=1, steps=1, noise_iters=1, batches=1, qps=0.0,
                         latency_requests=1, pipeline=2, model_cfg=json.loads(sys.argv[1]),
                         size=32, device="cpu")
 assert bench.saturated[0]["image"].shape == (32, 32, 3)
+# the VAE's adversarial steps, the STR hub (each model, PARSeq's permuted
+# loss), the STR metrics and config instantiation
+from udifftext_tpu_torch import config as pconfig, str_eval
+from udifftext_tpu_torch.diffusion import vae_loss
+from udifftext_tpu_torch.models import discriminator, parseq, str_hub
+vae = bundle.engine.vae.requires_grad_(True)
+disc = discriminator.NLayerDiscriminator(ndf=8, n_layers=2)
+ae_step, disc_step = vae_loss.make_vae_train_steps(
+    vae_loss.VAEGanLossConfig(), vae, disc, torch.optim.Adam(vae.parameters(), 1e-4),
+    torch.optim.Adam(disc.parameters(), 1e-4), lambda a, b: (a - b).square().mean((1, 2, 3)))
+x = torch.zeros(1, 32, 32, 3)
+eps = torch.randn(vae.encode_moments(x).shape[:-1] + (4,))
+ae_state = {"logvar": torch.zeros(()), "step": 0}
+assert all(bool(torch.isfinite(s(ae_state, x, eps)[0])) for s in (ae_step, disc_step))
+tiny_parseq = {"embed_dim": 16, "enc_depth": 1, "enc_num_heads": 2, "dec_num_heads": 2,
+               "max_label_length": 4}
+for name, kw in (("parseq", tiny_parseq), ("vitstr", {"embed_dim": 16, "depth": 1, "num_heads": 2}),
+                 ("abinet", {"d_model": 32, "d_inner": 32, "v_num_layers": 1,
+                             "l_num_layers": 1, "iter_size": 1}),
+                 ("trba", {"hidden": 16, "output_channel": 32}), ("crnn", {"hidden": 16})):
+    m = str_hub.create_model(name, device="cpu", **kw)
+    with torch.no_grad():
+        assert bool(torch.isfinite(m(torch.zeros(1, 32, 128, 3))).all())
+ids = torch.from_numpy(parseq.ParseqTokenizer().encode(["ab"], 4))
+assert bool(torch.isfinite(parseq.parseq_training_loss(
+    str_hub.create_model("parseq", device="cpu", **tiny_parseq), torch.zeros(1, 32, 128, 3), ids,
+    parseq.gen_tgt_perms(np.random.default_rng(0), 4))))
+assert str_eval.evaluate_predictions(["ab"], ["AB"], [0.5]).correct == 1
+assert pconfig.instantiate_from_config(
+    {"target": "sgm.modules.diffusionmodules.guiders.VanillaCFG"}).scale == 5.0
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "udifftext_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "udifftext_tpu"))
 print(json.dumps(bad))
 """
 
@@ -306,9 +336,10 @@ def test_port_never_imports_jax(tmp_path):
     """Sampling (plain, AAE and encoder propagation), the encprop quality
     script, one training step, the train and eval CLIs' entry functions, a
     LabelEncoder pretraining step, the FID of the eval CLI's files, the
-    three probes, the demo CLI, a checkpoint load and the serving benchmark
-    in a fresh process leave jax, flax and the JAX package out of
-    sys.modules."""
+    three probes, the demo CLI, a checkpoint load, the serving benchmark, a
+    step of each VAE GAN optimizer, every STR hub model, PARSeq's permuted
+    loss, the STR metrics and a config instantiation in a fresh process
+    leave jax, flax, optax and the JAX package out of sys.modules."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)
     res = subprocess.run(
@@ -320,10 +351,11 @@ def test_port_never_imports_jax(tmp_path):
 
 
 def test_port_sources_name_no_jax_package():
-    """No source of the port, nor the GPU smoke script, imports jax, flax or
-    the JAX package `udifftext_tpu` (the port's own package name starts with
+    """No source of the port, nor the GPU smoke script, imports jax, flax,
+    optax or the JAX package `udifftext_tpu` (the port's own package name starts with
     it, so the match ends at a word boundary)."""
-    pat = re.compile(r"^\s*(?:import|from)\s+(?:udifftext_tpu|jax|jaxlib|flax)\b(?!_)", re.M)
+    pat = re.compile(r"^\s*(?:import|from)\s+(?:udifftext_tpu|jax|jaxlib|flax|optax)\b(?!_)",
+                     re.M)
     files = sorted((REPO / "udifftext_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 30
     hits = [f"{f.relative_to(REPO)}: {m.group(0).strip()}"
@@ -331,6 +363,7 @@ def test_port_sources_name_no_jax_package():
     assert hits == []
     assert pat.search("from udifftext_tpu.config import load_config")
     assert pat.search("    import jax.numpy as jnp") and pat.search("import udifftext_tpu")
+    assert pat.search("import optax")
     assert not pat.search("from udifftext_tpu_torch.config import load_config")
 
 

@@ -191,6 +191,23 @@ def _tag(node: Optional[Dict[str, Any]], kind: str, known) -> str:
     return tag
 
 
+def build_discrete_sampling(num_idx: int = 1000, discretization_config=None,
+                            **_) -> DiscreteSampling:
+    """A DiscreteSampling sigma sampler (`sigma_sampler_config` params)."""
+    return DiscreteSampling(num_idx=num_idx,
+                            discretization=build_discretization(discretization_config))
+
+
+def build_discrete_denoiser(num_idx: int = 1000, weighting_config=None, scaling_config=None,
+                            discretization_config=None, **_) -> DiscreteDenoiser:
+    """A DiscreteDenoiser (`denoiser_config` params): scaling and weighting
+    by their targets' tags, "eps" where a node is absent."""
+    return DiscreteDenoiser(scaling=_tag(scaling_config, "Scaling", SCALINGS),
+                            weighting=_tag(weighting_config, "Weighting", WEIGHTINGS),
+                            num_idx=num_idx,
+                            discretization=build_discretization(discretization_config))
+
+
 def _shipped_embedders(emb_models) -> Optional[Dict[str, Any]]:
     """The settings of the shipped three-embedder graph (LabelEncoder →
     t_crossattn, one bilinear SpatialRescaler stage of the mask, the
@@ -341,13 +358,7 @@ def _build_engine(model_cfg, unet_dtype, device, train, remat, attn_impl) -> Eng
         n_heads=le_p.get("n_heads", 8), n_trans_layers=le_p.get("n_trans_layers", 12),
     )
 
-    den_p = _params(p.get("denoiser_config"))
-    denoiser = DiscreteDenoiser(
-        scaling=_tag(den_p.get("scaling_config"), "Scaling", SCALINGS),
-        weighting=_tag(den_p.get("weighting_config"), "Weighting", WEIGHTINGS),
-        num_idx=den_p.get("num_idx", 1000),
-        discretization=build_discretization(den_p.get("discretization_config")),
-    )
+    denoiser = build_discrete_denoiser(**_params(p.get("denoiser_config")))
     loss_p = _params(p.get("loss_fn_config"))
     ocr_enabled = bool(loss_p.get("ocr_enabled", False))
     pred_node = loss_p.get("predictor_config") or {}
@@ -366,9 +377,7 @@ def _build_engine(model_cfg, unet_dtype, device, train, remat, attn_impl) -> Eng
         label_encoder=label_encoder,
         denoiser=denoiser,
         discretization=build_discretization(samp_p.get("discretization_config")),
-        sigma_sampler=DiscreteSampling(
-            num_idx=sig_p.get("num_idx", 1000),
-            discretization=build_discretization(sig_p.get("discretization_config"))),
+        sigma_sampler=build_discrete_sampling(**sig_p),
         loss_cfg=FullLossConfig(
             kernel_size=loss_p.get("kernel_size", 3),
             gaussian_sigma=loss_p.get("gaussian_sigma", 1.0),
@@ -403,11 +412,15 @@ def _build_engine(model_cfg, unet_dtype, device, train, remat, attn_impl) -> Eng
 
 
 @torch.no_grad()
-def randomize_parameters(module: nn.Module, seed: int) -> nn.Module:
+def randomize_parameters(module: nn.Module, seed: int, keep: Tuple[str, ...] = ()) -> nn.Module:
     """Fill every parameter with seeded random values (none left zero, so
     zero-initialized output projections do not hide the network): weights
-    N(0, 1/fan_in), norm scales 1 + N(0, 0.1²), biases N(0, 0.02²),
-    embeddings N(0, 1). Values are drawn on each parameter's device."""
+    N(0, 1/fan_in), norm scales 1 + N(0, 0.1²) and shifts N(0, 0.1²),
+    biases N(0, 0.02²), embeddings N(0, 1); BatchNorm's running means
+    N(0, 0.1²) and variances 1 + |N(0, 0.5²)|. A parameter whose qualified
+    name ends with an entry of `keep` stays as the module set it (TRBA's
+    `localization_fc2.bias`, the TPS fiducial points). Values are drawn on
+    each parameter's device."""
     gens: Dict[torch.device, torch.Generator] = {}
 
     def randn(t: torch.Tensor) -> torch.Tensor:
@@ -416,18 +429,24 @@ def randomize_parameters(module: nn.Module, seed: int) -> nn.Module:
             g = gens[t.device] = torch.Generator(t.device).manual_seed(seed)
         return torch.randn(t.shape, generator=g, device=t.device, dtype=torch.float32)
 
-    for m in module.modules():
+    norms = (GroupNorm32, nn.LayerNorm, nn.modules.batchnorm._BatchNorm)
+    for mname, m in module.named_modules():
         for name, prm in m.named_parameters(recurse=False):
+            if keep and f"{mname}.{name}".endswith(keep):
+                continue
             r = randn(prm)
             if isinstance(m, nn.Embedding):
                 v = r
-            elif isinstance(m, (GroupNorm32, nn.LayerNorm)):
+            elif isinstance(m, norms):
                 v = 1.0 + 0.1 * r if name == "weight" else 0.1 * r
-            elif name.endswith("bias"):
+            elif name.endswith("bias") or name.startswith("bias_"):  # nn.LSTM's bias_ih_l0
                 v = 0.02 * r
-            else:  # Linear/Conv weights and the packed in-projection
+            else:  # Linear/Conv/LSTM weights and the packed in-projection
                 fan_in = math.prod(prm.shape[1:]) if prm.ndim > 1 else 1
                 v = r / math.sqrt(fan_in)
             prm.copy_(v.to(prm.dtype))
+        if isinstance(m, nn.modules.batchnorm._BatchNorm) and m.track_running_stats:
+            m.running_mean.copy_(0.1 * randn(m.running_mean))
+            m.running_var.copy_(1.0 + 0.5 * randn(m.running_var).abs())
     return module
 

@@ -1,6 +1,6 @@
 """PARSeq scene-text recognizer, the frozen OCR model of the fine-tuning loss
-(port of `udifftext_tpu/models/parseq.py`: the tokenizer and the inference
-model).
+(port of `udifftext_tpu/models/parseq.py`: the tokenizer, the inference
+model and the permuted-language-modelling training loss).
 
 PARSeq-base: a ViT encoder over 32×128 crops (patch 4×8, dim 384, depth 12,
 heads 6) and one two-stream pre-LN decoder layer (12 heads). Parameter
@@ -270,3 +270,103 @@ class PARSeq(nn.Module):
         causal = torch.triu(torch.full((num, num), NEG_INF, device=images.device), 1)
         out = self.decode(tgt_in, memory, tgt_mask=causal, tgt_query_mask=causal)
         return self.head(out).float()
+
+
+# ---------------------------------------------------------------------------
+# Permutation language modelling: the training loss (system.py:154-259)
+# ---------------------------------------------------------------------------
+
+
+def gen_tgt_perms(rng: np.random.Generator, max_num_chars: int, perm_num: int = 6,
+                  perm_forward: bool = True, perm_mirrored: bool = True) -> np.ndarray:
+    """The batch's shared orderings, BOS and EOS positions included
+    (n_perms, max_num_chars + 2) int32: the forward one first, each drawn
+    one followed by its mirror, the second replaced by the reverse order."""
+    import itertools
+
+    if max_num_chars == 1:
+        return np.arange(3, dtype=np.int32)[None]
+
+    perms = [np.arange(max_num_chars)] if perm_forward else []
+    max_gen_perms = perm_num // 2 if perm_mirrored else perm_num
+    max_perms = math.factorial(max_num_chars)
+    if perm_mirrored:
+        max_perms //= 2
+    num_gen_perms = min(max_gen_perms, max_perms)
+
+    if max_num_chars < 5:
+        if max_num_chars == 4 and perm_mirrored:
+            selector = [0, 3, 4, 6, 9, 10, 12, 16, 17, 18, 19, 21]
+        else:
+            selector = list(range(max_perms))
+        pool = np.asarray(list(itertools.permutations(range(max_num_chars))))[selector]
+        if perm_forward:
+            pool = pool[1:]
+        perms = np.stack(perms)
+        if len(pool):
+            i = rng.choice(len(pool), size=num_gen_perms - len(perms), replace=False)
+            perms = np.concatenate([perms, pool[i]])
+    else:
+        perms.extend(rng.permutation(max_num_chars) for _ in range(num_gen_perms - len(perms)))
+        perms = np.stack(perms)
+
+    if perm_mirrored:
+        perms = np.stack([perms, perms[:, ::-1]], axis=1).reshape(-1, max_num_chars)
+
+    bos_idx = np.zeros((len(perms), 1), perms.dtype)
+    eos_idx = np.full((len(perms), 1), max_num_chars + 1, perms.dtype)
+    perms = np.concatenate([bos_idx, perms + 1, eos_idx], axis=1)
+    if len(perms) > 1:
+        perms[1, 1:] = max_num_chars + 1 - np.arange(max_num_chars + 1)
+    return perms.astype(np.int32)
+
+
+def attn_masks_from_perm(perm: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(content_mask, query_mask) of one ordering, additive −1e9 masks:
+    a position reads only those before it in the ordering; the query
+    stream not even itself."""
+    sz = perm.shape[0]
+    mask = np.zeros((sz, sz), np.float32)
+    for i in range(sz):
+        mask[perm[i], perm[i + 1:]] = NEG_INF
+    content_mask = mask[:-1, :-1].copy()
+    mask[np.eye(sz, dtype=bool)] = NEG_INF
+    return content_mask, mask[1:, :-1]
+
+
+def perm_attn_masks(perms: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """The masks of every ordering, stacked."""
+    cms, qms = zip(*(attn_masks_from_perm(np.asarray(p)) for p in perms))
+    return np.stack(cms), np.stack(qms)
+
+
+def parseq_training_loss(model: PARSeq, images: torch.Tensor, label_ids: torch.Tensor,
+                         perms: np.ndarray) -> torch.Tensor:
+    """The permuted autoregressive CE (system.py:244-259), under autograd:
+    the teacher-forced CE over `label_ids` (B, L) ([BOS, chars, EOS, PAD…])
+    for each ordering of `perms` (from `gen_tgt_perms`), weighted by its
+    count of targets; EOS targets count only in the first two orderings."""
+    content_masks, query_masks = perm_attn_masks(np.asarray(perms))
+    dev = images.device
+    content_masks = torch.as_tensor(content_masks, dtype=torch.float32, device=dev)
+    query_masks = torch.as_tensor(query_masks, dtype=torch.float32, device=dev)
+    label_ids = label_ids.to(dev).long()
+    tgt_in, tgt_out = label_ids[:, :-1], label_ids[:, 1:]
+    padding = (tgt_in == model.pad_id) | (tgt_in == model.eos_id)
+    memory = model.encode(images)
+
+    loss = numel = 0.0
+    n = (tgt_out != model.pad_id).sum()
+    for i in range(content_masks.shape[0]):
+        out = model.decode(tgt_in, memory, tgt_mask=content_masks[i], tgt_padding_mask=padding,
+                           tgt_query_mask=query_masks[i])
+        logp = torch.log_softmax(model.head(out).float(), dim=-1)
+        idx = tgt_out.clamp(0, logp.shape[-1] - 1)
+        nll = -logp.gather(-1, idx[..., None])[..., 0]
+        valid = tgt_out != model.pad_id
+        loss = loss + n * (nll * valid).sum() / valid.sum().clamp(min=1)
+        numel = numel + n
+        if i == 1:
+            tgt_out = torch.where(tgt_out == model.eos_id, model.pad_id, tgt_out)
+            n = (tgt_out != model.pad_id).sum()
+    return loss / numel

@@ -8,6 +8,7 @@ Module and parameter names are the reference checkpoint's
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -37,6 +38,12 @@ class DiagonalGaussian:
     def kl(self) -> torch.Tensor:
         """KL(q ‖ N(0, 1)) of each sample, (B,)."""
         return 0.5 * torch.sum(self.mean ** 2 + torch.exp(self.logvar) - 1.0 - self.logvar,
+                               dim=(1, 2, 3))
+
+    def nll(self, sample: torch.Tensor) -> torch.Tensor:
+        """−log q(sample) of each sample, (B,)."""
+        return 0.5 * torch.sum(math.log(2.0 * math.pi) + self.logvar
+                               + (sample - self.mean) ** 2 / torch.exp(self.logvar),
                                dim=(1, 2, 3))
 
 

@@ -279,3 +279,34 @@ def engine_from_jax(params: Dict[str, dict]) -> Dict[str, torch.Tensor]:
         if key in params:
             sd.update({f"{name}.{k}": v for k, v in fn(params[key]).items()})
     return sd
+
+
+_BN_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def discriminator_from_jax(params, batch_stats) -> Dict[str, torch.Tensor]:
+    """JAX NLayerDiscriminator params and batch_stats →
+    `models.discriminator.NLayerDiscriminator` state dict (taming's keys:
+    conv0 → main.0, conv{n} / bn{n} → main.{3n−1} / main.{3n}, conv_out →
+    main.{3·n_layers + 2}; `num_batches_tracked` 0)."""
+    tree = params.get("params", params)
+    stats = batch_stats.get("batch_stats", batch_stats)
+    n_layers = sum(name.startswith("bn") for name in tree)
+
+    def index(name: str) -> int:
+        if name == "conv_out":
+            return 3 * n_layers + 2
+        n = int(name[len("conv"):] if name.startswith("conv") else name[len("bn"):])
+        return 0 if name == "conv0" else (3 * n if name.startswith("bn") else 3 * n - 1)
+
+    sd = {}
+    for name, sub in tree.items():
+        for leaf, v in sub.items():
+            key, t = _tensor(leaf, np.asarray(v))
+            sd[f"main.{index(name)}.{key}"] = t
+    for name, sub in stats.items():
+        for leaf, v in sub.items():
+            sd[f"main.{index(name)}.{_BN_STATS[leaf]}"] = torch.from_numpy(
+                np.asarray(v, np.float32).copy())
+        sd[f"main.{index(name)}.num_batches_tracked"] = torch.tensor(0)
+    return sd
