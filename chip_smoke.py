@@ -253,8 +253,22 @@ matplotlib, imageio or safetensors). Phases, each printed on its own line:
    (cuDNN convs in TF32), the share of greedy ids that agree, ms per
    forward (CUDA events, median of 5); then two PARSeq-base
    permuted-training steps (6 orderings, backward, AdamW) with a finite
-   loss and gradients, each step's seconds. Phases 17-18 print their
-   seconds.
+   loss and gradients, each step's seconds;
+19. the STR data path, tools and trainer (no kernel on the path): 2,048
+   synthetic word crops (heights 16-64, widths 40-400, labels of 1-25
+   characters) as `encode_png` PNGs written by `write_lmdb`, and three
+   256-crop benchmark-named sets; `get` over every record through the
+   native reader (opened directly: a failed g++ build fails the phase) and
+   the Python one, records/s, bytes equal; `str_train.train` at PARSeq-base
+   width from the LMDB, B=64, 40 steps, SWA from step 31: s/step (median
+   of steps 2-40), samples/s, the host's share of a step (LMDB get, PNG
+   decode, queuing bicubic_resize), peak memory from a reset counter; it
+   fails on a non-finite loss, an averaged parameter outside its
+   snapshots' range, or a checkpoint that `create_model` does not load
+   strictly; then `str_test --ckpt` on the three sets (tables, .log.txt,
+   images/s), `str_bench parseq 64`, `str_read` on two PNGs and
+   `str_abinet_lm_acc` with seeded ABINet weights. Phases 17-19 print their
+   seconds; phase 19 fails past 60 s.
 
 Beside every kernel's time stand its plain version's, its bound (the least
 time the card could take: the larger of bytes moved once over 3.35 TB/s and
@@ -266,7 +280,8 @@ never calls it.
 Each path (demo, AAE, training, OCR-loss training, glue probe, ResBlock
 probe, variants probe, serving, eval CLI, train CLI, encoder propagation at
 interval 2, the other samplers, pretraining, the metrics, the options demo,
-the options fine-tuning, the VAE GAN steps and the STR hub) runs with the
+the options fine-tuning, the VAE GAN steps, the STR hub, the STR trainer
+and the STR tools) runs with the
 launch counts set to 0 just before it and read just after.
 Any failure exits non-zero. The
 second-to-last line is the kernels' JSON record: each kernel's `launches`
@@ -1243,6 +1258,184 @@ def str_hub_phase(dev, card: str, kernel_fns, expected, by_path) -> float:
     if launches != expected():
         fail(f"the STR path launched a kernel: {launches}")
     del model, opt
+    torch.cuda.empty_cache()
+    return time.perf_counter() - t_phase
+
+
+def word_crops(rs, n: int) -> list:
+    """`n` synthetic word crops as (uint8 (h, w, 3), label): heights 16-64,
+    widths 40-400, stripes of two seeded colours under a few dark bars, and
+    labels of 1-25 characters of PARSeq's charset."""
+    import numpy as np
+
+    from udifftext_tpu_torch.models.parseq import PARSEQ_CHARSET
+
+    out = []
+    for _ in range(n):
+        h, w = rs.randint(16, 65), rs.randint(40, 401)
+        t = (np.sin(np.arange(w) / rs.uniform(2, 12))[None, :, None] + 1) / 2
+        img = t * rs.randint(0, 256, 3) + (1 - t) * rs.randint(0, 256, 3)
+        img = np.broadcast_to(img, (h, w, 3)).copy()
+        for x in rs.randint(0, w, rs.randint(1, 6)):
+            img[h // 4:3 * h // 4, x:x + rs.randint(2, 8)] = rs.randint(0, 60)
+        label = "".join(rs.choice(list(PARSEQ_CHARSET), rs.randint(1, 26)))
+        out.append((img.astype(np.uint8), label))
+    return out
+
+
+def str_data_phase(dev, card: str, kernel_fns, expected, by_path) -> float:
+    """Phase 19: the STR data path, tools and trainer. Returns the phase's
+    seconds."""
+    import numpy as np
+    import torch
+
+    from udifftext_tpu_torch.builders import randomize_parameters
+    from udifftext_tpu_torch.data import lmdb_native
+    from udifftext_tpu_torch.data.lmdb import LMDBReader, write_lmdb
+    from udifftext_tpu_torch.models.str_hub import build_model, create_model
+    from udifftext_tpu_torch.scripts import (
+        str_abinet_lm_acc,
+        str_bench,
+        str_read,
+        str_test,
+        str_train,
+    )
+    from udifftext_tpu_torch.utils.png import encode_png
+
+    t_phase = time.perf_counter()
+    rs = np.random.RandomState(19)
+    work = tempfile.TemporaryDirectory(prefix="udt_str19_")
+    root = work.name
+
+    def write_set(path, samples):
+        items = {b"num-samples": str(len(samples)).encode()}
+        for i, (img, label) in enumerate(samples, start=1):
+            items[b"image-%09d" % i] = encode_png(img)
+            items[b"label-%09d" % i] = label.encode()
+        write_lmdb(path, items)
+
+    t0 = time.perf_counter()
+    train_dir = f"{root}/train"
+    write_set(train_dir, word_crops(rs, 2048))
+    bench_sets = ("IIIT5k", "SVT", "IC13_857")
+    for name in bench_sets:
+        write_set(f"{root}/bench/{name}", word_crops(rs, 256))
+    mib = os.path.getsize(f"{train_dir}/data.mdb") / 2**20
+    log(f"[str19] wrote 2048 word crops ({mib:.1f} MiB) and 3 benchmark sets of 256 as "
+        f"encode_png PNGs through write_lmdb in {time.perf_counter() - t0:.2f} s")
+
+    # both readers over every key of the training set: records/s, bytes equal
+    keys = [b"%s-%09d" % (kind, i) for i in range(1, 2049) for kind in (b"image", b"label")]
+    try:
+        native = lmdb_native.NativeLMDBReader(train_dir)
+    except RuntimeError as e:
+        fail(f"the native LMDB reader did not build: {e}")
+    rates, values = {}, {}
+    for name, reader in (("native", native), ("python", LMDBReader(train_dir))):
+        with reader as db:
+            t0 = time.perf_counter()
+            values[name] = [db.get(k) for k in keys]
+            rates[name] = len(keys) / (time.perf_counter() - t0)
+    if values["native"] != values["python"] or any(v is None for v in values["native"]):
+        fail("the native and Python LMDB readers disagree")
+    log(f"[str19] LMDB get over {len(keys)} records: native {rates['native']:.0f} records/s, "
+        f"Python {rates['python']:.0f} records/s (host clock)")
+
+    # str_train at PARSeq-base width from the LMDB (the native reader, host PNG
+    # decode, bicubic_resize on the card): B=64, 40 steps, SWA from step 31
+    items = str_test.load_folder(train_dir)  # open_lmdb: the native reader, built above
+    if len(items) != 2048:
+        fail(f"str_test.load_folder gave {len(items)} LMDB items")
+    model = randomize_parameters(build_model("parseq"), 19).to(dev)
+    n_par = sum(p.numel() for p in model.parameters()) / 1e6
+    lo, hi = {}, {}
+
+    def track(i, m):  # each snapshot's range, over the steps SWA averages
+        if i >= 30:
+            with torch.no_grad():
+                for k, p in m.named_parameters():
+                    lo[k] = p.detach().clone() if k not in lo else torch.minimum(lo[k], p)
+                    hi[k] = p.detach().clone() if k not in hi else torch.maximum(hi[k], p)
+
+    lines = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30
+    reset(*kernel_fns)
+    res = str_train.train(items, model, dev, np.random.default_rng(0), steps=40, batch=64,
+                          swa=True, swa_start_pct=0.75, log=lines.append, on_step=track)
+    launches = by_path["str_train"] = counts(*kernel_fns)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for line in lines:
+        log(f"[str19] {line}")
+    step_med = statistics.median(res.step_s[1:])
+    host = sum(res.host_s[1:]) / sum(res.step_s[1:])
+    log(f"[str19] {card}: str_train PARSeq-base ({n_par:.1f} M parameters, fp32), B=64, 40 steps, "
+        f"6 orderings, one-cycle lr 7e-4, clip 20, AdamW: {step_med:.4f} s/step (median of steps "
+        f"2-40; step 1 {res.step_s[0]:.3f} s), {64 / step_med:.1f} samples/s, host share "
+        f"{host:.3f} (LMDB get + PNG decode + resize queued: {statistics.median(res.host_s[1:]):.4f}"
+        f" s a step), peak {peak:.2f} GiB ({held:.2f} held before), losses "
+        f"{[round(x, 4) for x in res.losses[::8]]}; launches {launches}")
+    if not all(np.isfinite(res.losses)):
+        fail(f"str_train: non-finite loss {res.losses}")
+    if res.swa_n != 10 or lines[-1] != "swa: averaged 10 snapshots from step 31":
+        fail(f"str_train SWA: {res.swa_n} snapshots, {lines[-1:]}")
+    outside = [k for k in lo if not bool(((res.state_dict[k] >= lo[k] - 1e-6 * lo[k].abs())
+                                          & (res.state_dict[k] <= hi[k] + 1e-6 * hi[k].abs()))
+                                         .all())]
+    if outside or len(lo) != len(dict(model.named_parameters())):
+        fail(f"SWA average outside its snapshots' range: {outside[:5]}")
+    if launches != expected():
+        fail(f"the STR trainer launched a kernel: {launches}")
+    # the host's batch in two parts: LMDB get + PNG decode, then load_crop
+    # (the copy to the card, the resize weights built in numpy, the resize)
+    t0 = time.perf_counter()
+    imgs = [items[j][0]() for j in range(64)]
+    t1 = time.perf_counter()
+    crops = [str_test.load_crop(im, (32, 128), dev) for im in imgs]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    log(f"[str19] a batch of 64 on the host: LMDB get + PNG decode {t1 - t0:.4f} s, load_crop "
+        f"{t2 - t1:.4f} s (host clock, ending in a synchronize)")
+    del imgs, crops
+    ckpt = str_train.save_checkpoint(res.state_dict, f"{root}/ckpt", 40)
+    del model, lo, hi, res
+    try:
+        loaded = create_model("parseq", ckpt, device=dev)
+    except RuntimeError as e:
+        fail(f"the STR trainer's checkpoint does not load strictly: {e}")
+    del loaded
+    torch.cuda.empty_cache()
+
+    # str_test on the checkpoint, str_bench, str_read, str_abinet_lm_acc
+    reset(*kernel_fns)
+    t0 = time.perf_counter()
+    results = str_test.main(["--data_root", f"{root}/bench", "--ckpt", ckpt, "--batch", "64"])
+    test_s = time.perf_counter() - t0
+    n_read = sum(r.num_samples for r in results.values())
+    if sorted(results) != sorted(bench_sets) or not os.path.exists(ckpt + ".log.txt"):
+        fail(f"str_test: sets {sorted(results)}, log written {os.path.exists(ckpt + '.log.txt')}")
+    log(f"[str19] str_test --ckpt: {n_read} images of {len(results)} sets in {test_s:.2f} s, "
+        f"{n_read / test_s:.1f} images/s (host clock, model load included)")
+    bench = str_bench.main(["parseq", "64"])
+    pngs = []
+    for i, (img, _) in enumerate(word_crops(rs, 2)):
+        pngs.append(f"{root}/read{i}.png")
+        with open(pngs[-1], "wb") as f:
+            f.write(encode_png(img))
+    texts = str_read.main(pngs + ["--ckpt", ckpt])
+    abinet = randomize_parameters(build_model("abinet"), 19)
+    abinet_path = f"{root}/abinet.pt"
+    torch.save({f"model.{k}": v for k, v in abinet.state_dict().items()}, abinet_path)
+    lm = str_abinet_lm_acc.main(["--data_root", f"{root}/bench", "--ckpt", abinet_path])
+    launches = by_path["str_tools"] = counts(*kernel_fns)
+    log(f"[str19] str_bench parseq 64: {bench['ms']:.3f} ms per forward, "
+        f"{bench['images_per_s']:.1f} images/s, {bench['gflops']:.1f} GFLOPs; str_read "
+        f"{len(texts)} files; str_abinet_lm_acc {sorted(lm)}; launches {launches}")
+    if (len(texts) != 2 or not bench["ms"] > 0 or sorted(lm) != ["IIIT5k", "SVT"]
+            or launches != expected()):
+        fail(f"STR tools: {texts}, {bench}, {sorted(lm)}, launches {launches}")
+    work.cleanup()
     torch.cuda.empty_cache()
     return time.perf_counter() - t_phase
 
@@ -3162,7 +3355,12 @@ def main() -> None:
     # either path)
     gan_s = vae_gan(dev, card, kernel_fns, expected, by_path)
     str_s = str_hub_phase(dev, card, kernel_fns, expected, by_path)
-    log(f"[phases] 17 (VAE GAN) {gan_s:.1f} s, 18 (STR hub) {str_s:.1f} s")
+    # 19. the STR data path, tools and trainer (no kernel on the path)
+    data_s = str_data_phase(dev, card, kernel_fns, expected, by_path)
+    log(f"[phases] 17 (VAE GAN) {gan_s:.1f} s, 18 (STR hub) {str_s:.1f} s, 19 (STR data, "
+        f"tools, trainer) {data_s:.1f} s")
+    if data_s > 60:
+        fail(f"phase 19 took {data_s:.1f} s (limit 60)")
 
     kernels = []
     for name, src, replaces, key, path in (

@@ -326,8 +326,29 @@ assert bool(torch.isfinite(parseq.parseq_training_loss(
 assert str_eval.evaluate_predictions(["ab"], ["AB"], [0.5]).correct == 1
 assert pconfig.instantiate_from_config(
     {"target": "sgm.modules.diffusionmodules.guiders.VanillaCFG"}).scale == 5.0
+# the STR data path and tools: an LMDB through open_lmdb, a trainer step with
+# SWA, str_test's evaluate_set
+from udifftext_tpu_torch.data.lmdb import open_lmdb, write_lmdb
+from udifftext_tpu_torch.ocr import ParseqPredictor
+from udifftext_tpu_torch.scripts import str_test, str_train
+db_dir = os.path.join(sys.argv[2], "str_lmdb")
+write_lmdb(db_dir, {b"num-samples": b"2", b"image-000000001": png.encode_png(
+    np.zeros((20, 50, 3), np.uint8)), b"label-000000001": b"ab",
+    b"image-000000002": png.encode_png(np.full((16, 40, 3), 200, np.uint8)),
+    b"label-000000002": b"c1"})
+with open_lmdb(db_dir) as db:
+    assert db.get(b"num-samples") == b"2"
+items = str_test.load_folder(db_dir)
+str_parseq = dict(tiny_parseq, max_label_length=25)  # the trainer's labels are 25 wide
+res = str_train.train(items, str_hub.create_model("parseq", device="cpu", **str_parseq),
+                      torch.device("cpu"), np.random.default_rng(0), steps=2, batch=2,
+                      warmup_pct=0.5, swa=True, swa_start_pct=0.5, log=lambda s: None)
+assert res.swa_n == 1 and all(np.isfinite(res.losses))
+reader = ParseqPredictor(str_hub.create_model("parseq", device="cpu", **str_parseq))
+assert str_test.evaluate_set(reader, items, 2, 90, "abc1").num_samples == 2
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "udifftext_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "udifftext_tpu", "scripts")
+             or m.startswith("str_"))
 print(json.dumps(bad))
 """
 
@@ -338,8 +359,10 @@ def test_port_never_imports_jax(tmp_path):
     LabelEncoder pretraining step, the FID of the eval CLI's files, the
     three probes, the demo CLI, a checkpoint load, the serving benchmark, a
     step of each VAE GAN optimizer, every STR hub model, PARSeq's permuted
-    loss, the STR metrics and a config instantiation in a fresh process
-    leave jax, flax, optax and the JAX package out of sys.modules."""
+    loss, the STR metrics, a config instantiation, an LMDB read through
+    open_lmdb, two STR trainer steps with SWA and str_test's evaluate_set in
+    a fresh process leave jax, flax, optax, the JAX package and the root
+    `scripts` package out of sys.modules."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)
     res = subprocess.run(
@@ -352,10 +375,11 @@ def test_port_never_imports_jax(tmp_path):
 
 def test_port_sources_name_no_jax_package():
     """No source of the port, nor the GPU smoke script, imports jax, flax,
-    optax or the JAX package `udifftext_tpu` (the port's own package name starts with
-    it, so the match ends at a word boundary)."""
-    pat = re.compile(r"^\s*(?:import|from)\s+(?:udifftext_tpu|jax|jaxlib|flax|optax)\b(?!_)",
-                     re.M)
+    optax, the JAX package `udifftext_tpu` (the port's own package name starts with
+    it, so the match ends at a word boundary), the root `scripts` package or a
+    root script by its bare name (`from str_test import`, as the JAX STR tools do)."""
+    pat = re.compile(r"^\s*(?:import|from)\s+(?:udifftext_tpu|jax|jaxlib|flax|optax|scripts|"
+                     r"str_\w+)\b(?!_)", re.M)
     files = sorted((REPO / "udifftext_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 30
     hits = [f"{f.relative_to(REPO)}: {m.group(0).strip()}"
@@ -364,7 +388,11 @@ def test_port_sources_name_no_jax_package():
     assert pat.search("from udifftext_tpu.config import load_config")
     assert pat.search("    import jax.numpy as jnp") and pat.search("import udifftext_tpu")
     assert pat.search("import optax")
+    assert pat.search("from scripts.str_test import load_folder")
+    assert pat.search("    from str_test import TEST_BENCHMARK") and pat.search("import scripts")
     assert not pat.search("from udifftext_tpu_torch.config import load_config")
+    assert not pat.search("from .str_test import load_folder")
+    assert not pat.search("from udifftext_tpu_torch.scripts import str_test")
 
 
 def test_config_reader_matches_the_jax_package():

@@ -1,7 +1,8 @@
 """OCR predictor over PARSeq (port of `udifftext_tpu/ocr.py`).
 
   - preprocessing: crops resized to 32×128, normalized (x − 0.5) / 0.5;
-  - img2txt: greedy decode through the tokenizer;
+  - img2txt: greedy decode as the reader's strhub tokenizer does it (CTC
+    collapse for CRNN, up to the first EOS for the others);
   - calc_loss: per-sample CE over the characters before the first EOS,
     clamped at 1.0, differentiable in the images.
 
@@ -22,6 +23,7 @@ Two resamplers, each the function of its JAX-package counterpart:
 
 from __future__ import annotations
 
+import inspect
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -29,6 +31,8 @@ import torch
 
 from .models.layers import keys_cubic
 from .models.parseq import PARSeq, ParseqTokenizer
+from .models.str_models import CRNN, ctc_collapse
+from .str_eval import sequence_confidence
 
 
 def scale_translate_weights(in_size: int, out_size: int, scale: torch.Tensor,
@@ -94,32 +98,49 @@ def bicubic_resize(image: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor
 
 
 class ParseqPredictor:
-    """A frozen PARSeq with its tokenizer; runs on the model's device."""
+    """A frozen PARSeq, or another hub reader, with its tokenizer; runs on
+    the model's device. How the reader is called (with `refine_iters` or
+    without) and decoded (CTC or EOS-first) is fixed when it is built."""
 
     def __init__(self, model: PARSeq, tokenizer: ParseqTokenizer = None):
         self.model = model
         self.tokenizer = tokenizer or ParseqTokenizer()
+        self.takes_refine = "refine_iters" in inspect.signature(model.forward).parameters
+        self.ctc = isinstance(model, CRNN)
 
     @property
     def img_hw(self) -> Tuple[int, int]:
-        return tuple(self.model.img_size)
+        return tuple(getattr(self.model, "img_size", (32, 128)))  # every hub reader's size
 
     @property
     def device(self) -> torch.device:
-        return self.model.pos_queries.device
+        return next(self.model.parameters()).device
 
     def preprocess(self, crops: torch.Tensor) -> torch.Tensor:
         """crops (B, H, W, 3) in [0, 1] → (x − 0.5) / 0.5."""
         return (crops - 0.5) / 0.5
 
     def read_logits(self, crops: torch.Tensor, refine_iters: int = 1) -> torch.Tensor:
-        return self.model(self.preprocess(crops), refine_iters)
+        if self.takes_refine:
+            return self.model(self.preprocess(crops), refine_iters)
+        return self.model(self.preprocess(crops))
+
+    def decode(self, logits: np.ndarray) -> Tuple[List[str], List[float]]:
+        """(B, T, C) logits → the greedy strings and sequence confidences, as
+        strhub's tokenizers give them: a CTC reader's best path with repeats
+        merged and blanks (id 0) dropped, its confidence over every frame;
+        the others' ids up to the first EOS (id 0), confidence up to it."""
+        ids = logits.argmax(-1)
+        if self.ctc:
+            texts = ["".join(self.tokenizer.itos[i] for i in seq) for seq in ctc_collapse(ids)]
+            return texts, sequence_confidence(logits, eos_id=None)
+        return self.tokenizer.decode_ids(ids), sequence_confidence(logits)
 
     @torch.no_grad()
     def img2txt(self, crops: torch.Tensor) -> List[str]:
         """crops already (B, 32, 128, 3), [0, 1] → the greedy strings."""
-        ids = self.read_logits(torch.as_tensor(crops, device=self.device)).argmax(dim=-1)
-        return self.tokenizer.decode_ids(ids.cpu().numpy())
+        logits = self.read_logits(torch.as_tensor(crops, device=self.device))
+        return self.decode(logits.float().cpu().numpy())[0]
 
     def img2txt_ragged(self, images: Sequence[np.ndarray]) -> List[str]:
         """Crops of any size (H_i, W_i, 3) in [0, 1]: each resized to 32×128

@@ -21,6 +21,13 @@
   - The other LR schedules of the reference (`sgm/lr_scheduler.py`):
     warm-up then cosine, cosine cycles, warm-up then linear, as plain
     functions of the step.
+  - The STR trainer's optimizer (`scripts/str_train.py`, which the JAX
+    script composes from optax): `onecycle_cosine_schedule` (optax's
+    `cosine_onecycle_schedule`, which is not torch's OneCycleLR),
+    `clip_grad_global_norm_` (optax's `clip_by_global_norm`: no epsilon
+    beside the norm), `make_str_optimizer` (optax's `adamw` defaults, weight
+    decay 1e-4) and `swa_update`, the equal-weight running mean of
+    stochastic weight averaging.
 """
 
 from __future__ import annotations
@@ -122,6 +129,68 @@ def warmup_linear_schedule(base_lr: float, warmup_steps: int, total_steps: int,
         return base_lr + (lr_min - base_lr) * t
 
     return schedule
+
+
+def onecycle_cosine_schedule(total_steps: int, peak_lr: float,
+                             pct_start: float = 0.3) -> Callable[[int], float]:
+    """optax.cosine_onecycle_schedule at its defaults as a function of the
+    step: a cosine from peak_lr / 25 up to peak_lr over [0, int(pct_start ·
+    T)), then a cosine down to peak_lr / 25 / 1e4 over [int(pct_start · T),
+    T), that value from T on. Where the warm-up has no step (int(pct_start ·
+    T) = 0) it starts at the peak (optax's value there is NaN)."""
+    if total_steps <= 0:
+        raise ValueError(f"onecycle schedule over {total_steps} steps")
+    init = peak_lr / 25.0
+    final = init / 1e4
+    peak_at = int(pct_start * total_steps)
+    segments = [(0, peak_at, init, peak_lr), (peak_at, int(total_steps), peak_lr, final)]
+
+    def schedule(step: int) -> float:
+        for lo, hi, start, end in segments:
+            if lo <= step < hi:
+                pct = (step - lo) / (hi - lo)
+                return end + (start - end) / 2.0 * (math.cos(math.pi * pct) + 1)
+        return final
+
+    return schedule
+
+
+@torch.no_grad()
+def clip_grad_global_norm_(grads: Sequence[torch.Tensor], max_norm: float) -> torch.Tensor:
+    """optax.clip_by_global_norm in place: where the global norm is at least
+    `max_norm`, every gradient becomes (g / norm) · max_norm. Returns the
+    norm (on the device: nothing here waits for it)."""
+    norm = torch.stack([g.float().square().sum() for g in grads]).sum().sqrt()
+    clip = norm >= max_norm
+    for g in grads:
+        g.copy_(torch.where(clip, g / norm * max_norm, g))
+    return norm
+
+
+def make_str_optimizer(params: Iterable[torch.Tensor], lr: float) -> torch.optim.AdamW:
+    """optax.adamw's defaults (b1 0.9, b2 0.999, eps 1e-8, weight decay
+    1e-4); the caller sets each group's lr before every step."""
+    return torch.optim.AdamW(list(params), lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=1e-4)
+
+
+@torch.no_grad()
+def swa_update(avg: Dict[str, torch.Tensor], params: Dict[str, torch.Tensor],
+               n_avg: int) -> Dict[str, torch.Tensor]:
+    """Stochastic weight averaging in place: avg ← avg + (p − avg) / (n_avg + 1),
+    the equal-weight mean of the n_avg snapshots already in `avg` and this
+    one. The first snapshot is a clone of the parameters (`swa_start`): an
+    average that aliased them would follow the optimizer's in-place updates."""
+    w = 1.0 / (n_avg + 1.0)
+    for name, a in avg.items():
+        a.add_((params[name].detach() - a) * w)
+    return avg
+
+
+@torch.no_grad()
+def swa_start(params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The average of one snapshot: a copy of each parameter."""
+    return {name: p.detach().clone() for name, p in params.items()}
 
 
 def make_optimizer(params: Iterable[torch.Tensor], base_lr: float = 5e-5) -> torch.optim.AdamW:

@@ -1,4 +1,4 @@
-"""The probes' shared timing helper."""
+"""The probes' and STR tools' shared helpers: timing, and the device."""
 
 from __future__ import annotations
 
@@ -35,9 +35,10 @@ def time_ms(fn: Callable[[], object], reps: int, runs: int, device: torch.device
 
 
 def probe_device(name: str, device: str) -> torch.device:
-    """`device` as a torch.device; a probe asked for the card fails without one."""
+    """`device` as a torch.device; a probe or tool asked for the card fails
+    without one."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"{name}: no CUDA device found (pass device='cpu' or --device cpu to "
-                           "check the script on the CPU)")
+                           "run the script on the CPU)")
     return dev

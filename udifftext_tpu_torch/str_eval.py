@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import re
 from dataclasses import dataclass
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -79,9 +79,10 @@ def evaluate_predictions(preds: Sequence[str], gts: Sequence[str], confidences: 
     return res
 
 
-def sequence_confidence(logits: np.ndarray, eos_id: int = 0) -> List[float]:
+def sequence_confidence(logits: np.ndarray, eos_id: Optional[int] = 0) -> List[float]:
     """The product of each step's top softmax probability, up to and
-    including the first EOS, per sequence of (B, T, C) logits."""
+    including the first EOS (every step with `eos_id=None`, as strhub's CTC
+    tokenizer scores a best path), per sequence of (B, T, C) logits."""
     logits = np.asarray(logits)
     probs = np.exp(logits - logits.max(-1, keepdims=True))
     probs = probs / probs.sum(-1, keepdims=True)

@@ -2,9 +2,9 @@
 train CLIs write their images with it where Pillow is not installed.
 
 `write_png` writes an 8-bit RGB (H, W, 3) or greyscale (H, W) / (H, W, 1)
-uint8 array as one IDAT chunk, every row with filter 0. `read_png` reads
-such a file back (every chunk's CRC checked), for checks where Pillow is
-absent.
+uint8 array as one IDAT chunk, every row with filter 0. `decode_png` reads
+such bytes back (every chunk's CRC checked), and `read_png` such a file,
+where Pillow is absent.
 """
 
 from __future__ import annotations
@@ -47,19 +47,32 @@ def write_png(path: str, arr: np.ndarray) -> str:
 
 
 def read_png(path: str) -> np.ndarray:
-    """A PNG of `write_png`'s kind (8-bit RGB or greyscale, not interlaced,
-    row filter 0) as uint8 (H, W, 3) or (H, W)."""
+    """The PNG file at `path`, as `decode_png` reads it."""
     with open(path, "rb") as f:
         data = f.read()
+    try:
+        return decode_png(data)
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from None
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes of `encode_png`'s kind (8-bit RGB or greyscale, not
+    interlaced, row filter 0) as uint8 (H, W, 3) or (H, W); ValueError for
+    anything else."""
     if data[:8] != SIGNATURE:
-        raise ValueError(f"{path}: not a PNG file")
+        raise ValueError("not a PNG file")
     pos, header, idat = 8, None, []
     while pos < len(data):
+        if pos + 12 > len(data):
+            raise ValueError("truncated PNG")
         (n,) = struct.unpack(">I", data[pos:pos + 4])
+        if pos + 12 + n > len(data):
+            raise ValueError("truncated PNG")
         tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
         (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
         if crc != zlib.crc32(tag + body) & 0xFFFFFFFF:
-            raise ValueError(f"{path}: bad CRC in chunk {tag!r}")
+            raise ValueError(f"bad CRC in chunk {tag!r}")
         if tag == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
         elif tag == b"IDAT":
@@ -68,15 +81,18 @@ def read_png(path: str) -> np.ndarray:
             break
         pos += 12 + n
     if header is None:
-        raise ValueError(f"{path}: no IHDR chunk")
+        raise ValueError("no IHDR chunk")
     w, h, depth, color, _, _, interlace = header
     channels = {v: k for k, v in COLOR_TYPES.items()}.get(color)
     if depth != 8 or channels is None or interlace:
-        raise ValueError(f"{path}: only 8-bit RGB or greyscale, not interlaced "
+        raise ValueError(f"only 8-bit RGB or greyscale, not interlaced "
                          f"(depth {depth}, colour type {color}, interlace {interlace})")
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, w * channels + 1)
+    try:
+        raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, w * channels + 1)
+    except zlib.error as e:
+        raise ValueError(f"bad image data: {e}") from None
     if raw[:, 0].any():
-        raise ValueError(f"{path}: row filters {sorted(set(raw[:, 0].tolist()))}; this reader "
-                         "takes filter 0 only, as write_png writes")
+        raise ValueError(f"row filters {sorted(set(raw[:, 0].tolist()))}; this reader "
+                         "takes filter 0 only, as encode_png writes")
     img = raw[:, 1:].reshape(h, w, channels)
     return img[..., 0] if channels == 1 else img
