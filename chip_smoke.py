@@ -268,7 +268,35 @@ matplotlib, imageio or safetensors). Phases, each printed on its own line:
    strictly; then `str_test --ckpt` on the three sets (tables, .log.txt,
    images/s), `str_bench parseq 64`, `str_read` on two PNGs and
    `str_abinet_lm_acc` with seeded ABINet weights. Phases 17-19 print their
-   seconds; phase 19 fails past 60 s.
+   seconds; phase 19 fails past 60 s;
+20. data-parallel serving (`scripts/serve.build_service(dp=2)`) on two ranks
+   started by this script (`python3 chip_smoke.py --multicard-rank DIR`,
+   torchrun's variables): with one card both share cuda:0 over gloo, which
+   the script prints as its choice; with two or more, NCCL on two cards. The
+   full-width engine with seeded weights, phase 11's sampler (50 steps, CFG
+   4.0, 10 candidates in the batched search), one bucket of 8 distinct 512²
+   uint8 requests (4 rows a rank), pipeline depth 2, against the dp-1 service
+   on the same seed in this process: the global scores within 1e-4 of their
+   largest and bit-equal on the two ranks, the same candidate unless the
+   lowest are tied within twice the scores' measured disagreement (then this
+   process samples the dp-2 candidate from the same draws; the line prints
+   every score's distance from the lowest), the
+   images within phase 5b's relative L2 of 5e-2, the replay coordinates
+   equal, 520 flash and 780 GEGLU launches on each rank and here, and the
+   worker's loop ended by rank 0's shutdown; each rank's peak memory from a
+   reset counter and its seconds (no speed-up figure on a shared card);
+21. the tensor-parallel fine-tuning step on the same two ranks as one tensor
+   group (`parallel/sharding.shard_model_`): TEXTDESIGN_SD_2_TRAIN, seeded
+   weights, one micro-batch of 8 synthetic 512² samples with the draws of
+   one seeded generator, against the unsharded step in this process: loss
+   within 1e-2 relative, the trainable gradients (shards gathered) within
+   5e-2 relative L2, the updated parameters differing by no more than the
+   gradients' disagreement lets Adam's first step differ, every trainable
+   tensor moved, the replicated gradients and updates bit-equal on the two
+   ranks, a shard then gather of the state dict bit-equal,
+   `tp_report` listing the ten ds1 attention modules, and 10 flash forward,
+   9 flash backward and 15 GEGLU launches on each rank. A failure in a rank
+   fails the phase; the ranks are killed on the way out.
 
 Beside every kernel's time stand its plain version's, its bound (the least
 time the card could take: the larger of bytes moved once over 3.35 TB/s and
@@ -281,8 +309,9 @@ Each path (demo, AAE, training, OCR-loss training, glue probe, ResBlock
 probe, variants probe, serving, eval CLI, train CLI, encoder propagation at
 interval 2, the other samplers, pretraining, the metrics, the options demo,
 the options fine-tuning, the VAE GAN steps, the STR hub, the STR trainer
-and the STR tools) runs with the
-launch counts set to 0 just before it and read just after.
+and the STR tools, dp serving, the tensor-parallel step) runs with the
+launch counts set to 0 just before it and read just after (phases 20 and 21
+count in each rank; their `dp_serve` and `tp_train` entries are rank 0's).
 Any failure exits non-zero. The
 second-to-last line is the kernels' JSON record: each kernel's `launches`
 counts the path named by its `launches_path` (training for the kernels the
@@ -1440,6 +1469,351 @@ def str_data_phase(dev, card: str, kernel_fns, expected, by_path) -> float:
     return time.perf_counter() - t_phase
 
 
+def kernel_wrappers() -> tuple:
+    """Every kernel wrapper of the port, whose `launches` the phases count."""
+    from udifftext_tpu_torch.ops.cross_attention import fused_cross_attention
+    from udifftext_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
+    from udifftext_tpu_torch.ops.flash_variants import flash_variant
+    from udifftext_tpu_torch.ops.geglu import geglu_ff, geglu_ff_ln
+    from udifftext_tpu_torch.ops.groupnorm import fused_groupnorm_silu
+    from udifftext_tpu_torch.ops.ln_gemm import ln_gemm, ln_gemm3
+
+    return (flash_attention, flash_attention_bwd, geglu_ff, ln_gemm, ln_gemm3,
+            fused_cross_attention, geglu_ff_ln, fused_groupnorm_silu, flash_variant)
+
+
+# phases 20-21: configs/demo.yaml's sampler for the dp-2 service, one bucket of 8
+# (4 rows a rank); the tensor-parallel step's micro-batch, seed and LR
+DP_SERVE = {"load_ckpt_path": None, "bf16": True, "H": 512, "seq_len": 12, "steps": 50,
+            "scale": [4.0, 0.0], "noise_iters": 10}
+DP_BUCKET = 8
+TP_MICRO, TP_SEED, TP_LR = 8, 21, 5e-5
+
+
+def dp_requests() -> list:
+    """DP_BUCKET distinct 512² uint8 requests: seeded noise images, masks of
+    different boxes, different words."""
+    import numpy as np
+
+    from udifftext_tpu_torch.serving import InpaintRequest
+
+    rs = np.random.RandomState(20)
+    out = []
+    for i, word in enumerate(("HELLO", "card", "Two", "ranks", "serve", "one", "BUCKET", "ok")):
+        mask = np.zeros((512, 512), np.uint8)
+        y0, x0 = 64 + 24 * i, 48 + 16 * i
+        mask[y0:y0 + 128, x0:x0 + 256] = 1
+        out.append(InpaintRequest(image=rs.randint(0, 256, (512, 512, 3)).astype(np.uint8),
+                                  mask=mask, text=word))
+    return out
+
+
+def tp_step(engine, dev, data_group=None):
+    """One fine-tuning step of TP_MICRO synthetic 512² samples (one
+    micro-batch) with the draws of a generator seeded TP_SEED: (loss, state,
+    seconds)."""
+    import torch
+
+    from udifftext_tpu_torch.data.synthetic import SyntheticBatches
+    from udifftext_tpu_torch.parallel import train as PT
+    from udifftext_tpu_torch.train import to_device
+
+    batch = to_device(SyntheticBatches(1, TP_MICRO, seed=TP_SEED).batches[0], dev)
+    state = PT.TrainState.create(engine, base_lr=TP_LR, steps_per_epoch=1000)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    loss, _ = PT.train_step(
+        state, [batch],
+        lambda mb: engine.loss(mb, generator=torch.Generator(dev).manual_seed(TP_SEED)),
+        data_group=data_group)
+    loss = float(loss)
+    return loss, state, time.perf_counter() - t0
+
+
+def multicard_child(work: str) -> None:
+    """One rank of phases 20-21 (started by `multicard_phases` with torchrun's
+    variables): the dp-2 service (rank 0 serves DP_BUCKET requests and shuts
+    down, rank 1 serves until the stop header), then the tensor-parallel
+    step over the world as one tensor group. Each phase prints a JSON line;
+    results go to `work`."""
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+
+    from udifftext_tpu_torch.builders import TEXTDESIGN_SD_2, TEXTDESIGN_SD_2_TRAIN, build_engine
+    from udifftext_tpu_torch.builders import randomize_parameters
+    from udifftext_tpu_torch.ops import _build
+    from udifftext_tpu_torch.parallel import dist, sharding
+    from udifftext_tpu_torch.parallel.mesh import make_groups
+    from udifftext_tpu_torch.scripts import serve
+
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+    torch.cuda.set_device(dev)
+    if os.environ["MULTICARD_BACKEND"] == "gloo":  # ranks that share a card
+        tdist.init_process_group("gloo", init_method="env://", timeout=dist.group_timeout())
+    else:
+        dist.maybe_init_distributed(dev)
+    _build.load_library()
+    kernel_fns = kernel_wrappers()
+
+    # 20. the dp-2 service
+    reset(*kernel_fns)
+    torch.cuda.reset_peak_memory_stats(dev)
+    svc = serve.build_service(DP_SERVE, TEXTDESIGN_SD_2, dev, max_batch=DP_BUCKET,
+                              buckets=(DP_BUCKET,), pipeline=2, dp=world, seed=0,
+                              noise_search_batched=True)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    if rank == 0:
+        res = [f.result(timeout=600) for f in [svc.submit(r) for r in dp_requests()]]
+        run = svc.predictor.run
+        svc.shutdown()
+        np.savez(f"{work}/dp2.npz", images=np.stack([r["image"] for r in res]),
+                 scores=run.last_aux["noise_scores"].float().cpu().numpy(),
+                 coords=np.array([(r["batch_key"], r["row"], r["batch_size"]) for r in res]))
+        groups = svc.predictor.groups
+    else:
+        groups = svc.serve()
+        run = svc.run
+    torch.cuda.synchronize(dev)
+    print(json.dumps({"phase": 20, "rank": rank, "groups": groups, "launches": counts(*kernel_fns),
+                      "scores": run.last_aux["noise_scores"].float().cpu().tolist(),
+                      "s": time.perf_counter() - t0,
+                      "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}), flush=True)
+    del svc, run  # the engine goes with them, before phase 21's peak is read
+    torch.cuda.empty_cache()
+
+    # 21. the tensor-parallel fine-tuning step
+    grid = make_groups(1, world)
+    engine = build_engine(TEXTDESIGN_SD_2_TRAIN, torch.bfloat16, dev, train=True).engine
+    randomize_parameters(engine, 0)
+    plan = sharding.shard_model_(engine, grid.tensor)
+    reset(*kernel_fns)
+    torch.cuda.reset_peak_memory_stats(dev)
+    loss, state, step_s = tp_step(engine, dev, grid.data)
+    torch.save({"loss": loss,
+                "params": {n: p.detach().cpu() for n, p in state.params.items()},
+                "grads": {n: p.grad.detach().cpu() for n, p in state.params.items()}},
+               f"{work}/tp.{rank}.pt")
+    print(json.dumps({"phase": 21, "rank": rank, "loss": loss, "s": step_s,
+                      "launches": counts(*kernel_fns), "whole": plan.whole,
+                      "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}), flush=True)
+    tdist.destroy_process_group()
+
+
+def multicard_phases(dev, card: str, kernel_fns, expected, by_path) -> float:
+    """Phases 20-21: two ranks (`multicard_child`) against one process in
+    this one. Returns the phases' seconds."""
+    import numpy as np
+    import torch
+
+    from udifftext_tpu_torch.builders import TEXTDESIGN_SD_2, TEXTDESIGN_SD_2_TRAIN, build_engine
+    from udifftext_tpu_torch.builders import randomize_parameters
+    from udifftext_tpu_torch.parallel import sharding
+    from udifftext_tpu_torch.predict import Predictor
+    from udifftext_tpu_torch.scripts import serve
+    from udifftext_tpu_torch.serving import batch_seed
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()  # the ranks share the card with what earlier phases cached
+    share = torch.cuda.device_count() < 2
+    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+    log(f"[multicard] {card}; compute mode {mode}: "
+        + ("one card, so both ranks run on cuda:0 with gloo (an explicit choice of this "
+           "smoke run: their times share the card and are not a speed-up figure)"
+           if share else "two ranks on cuda:0 and cuda:1 with NCCL"))
+    with socket.socket() as s_:
+        s_.bind(("localhost", 0))
+        port = s_.getsockname()[1]
+    with tempfile.TemporaryDirectory(prefix="udt_multicard_") as work:
+        env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(port), WORLD_SIZE="2",
+                   MULTICARD_BACKEND="gloo" if share else "nccl")
+        here = os.path.dirname(os.path.abspath(__file__))
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--multicard-rank",
+                                   work], cwd=here, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True,
+                                  env=dict(env, RANK=str(r), LOCAL_RANK="0" if share else str(r)))
+                 for r in range(2)]
+        try:
+            # 20, this process: the dp-1 service on the same seed and requests
+            reset(*kernel_fns)
+            svc = serve.build_service(DP_SERVE, TEXTDESIGN_SD_2, dev,
+                                      max_batch=DP_BUCKET, buckets=(DP_BUCKET,), pipeline=2,
+                                      seed=0, noise_search_batched=True)
+            t0 = time.perf_counter()
+            res = [f.result(timeout=600) for f in [svc.submit(r) for r in dp_requests()]]
+            one_s = time.perf_counter() - t0
+            one_scores = svc.predictor.last_aux["noise_scores"].float().cpu().numpy()
+            svc.shutdown()
+            one_launches = counts(*kernel_fns)
+            one_images = np.stack([r["image"] for r in res])
+            one_coords = [(r["batch_key"], r["row"], r["batch_size"]) for r in res]
+            group = svc.batch_of([svc.build_row(r) for r in dp_requests()])
+            one_engine = svc.predictor.predictor.engine
+            del svc, res
+            # 21, this process: the unsharded step from the same weights and draws
+            engine = build_engine(TEXTDESIGN_SD_2_TRAIN, torch.bfloat16, dev, train=True).engine
+            randomize_parameters(engine, 0)
+            start = {n: p.detach().cpu().clone() for n, p in engine.named_parameters()
+                     if p.requires_grad}
+            plan = sharding.tp_plan(engine, 2)
+            unet_sd = engine.state_dict()
+            shards = [sharding.shard_state_dict(unet_sd, t_, 2, plan) for t_ in range(2)]
+            round_trip = sharding.gather_state_dict(shards, plan)
+            bit_equal = all(torch.equal(round_trip[k], v) for k, v in unet_sd.items())
+            del shards, round_trip, unet_sd
+            ref_loss, ref_state, ref_s = tp_step(engine, dev)
+            ref = {n: (p.detach().cpu(), p.grad.detach().cpu())
+                   for n, p in ref_state.params.items()}
+            del engine, ref_state
+            torch.cuda.empty_cache()
+            outs = [p_.communicate(timeout=900) for p_ in procs]
+            # 20: where the two chose different candidates, this process samples
+            # the group again from the dp-2 one (its draws, no search)
+            dp2 = dict(np.load(f"{work}/dp2.npz"))
+            chosen = int(np.argmin(dp2["scores"]))
+            same_images = one_images
+            if chosen != int(np.argmin(one_scores)):
+                g_ = torch.Generator(dev).manual_seed(batch_seed(0, 0))
+                shape = (DP_BUCKET, 64, 64, 4)
+                eps = torch.randn(shape, generator=g_, device=dev)
+                cands = torch.randn((DP_SERVE["noise_iters"],) + shape, generator=g_, device=dev)
+                again = Predictor(one_engine, num_steps=DP_SERVE["steps"],
+                                  cfg_scale=DP_SERVE["scale"][0], noise_iters=0)
+                same_images = again(group, posterior_eps=eps,
+                                    noise=cands[chosen][None])[0].cpu().numpy()
+                del again, eps, cands
+            del one_engine
+            torch.cuda.empty_cache()
+        finally:
+            for p_ in procs:
+                if p_.poll() is None:
+                    p_.kill()
+                    p_.wait()
+        lines = {}
+        for r, (p_, (out, err)) in enumerate(zip(procs, outs)):
+            if p_.returncode != 0:
+                fail(f"multicard rank {r} exited {p_.returncode}:\n{err[-4000:]}")
+            for line in out.splitlines():
+                if line.startswith('{"phase"'):
+                    rec = json.loads(line)
+                    lines[(rec["phase"], rec["rank"])] = rec
+        if set(lines) != {(ph, r) for ph in (20, 21) for r in range(2)}:
+            fail(f"multicard ranks printed {sorted(lines)}")
+        tp_parts = [torch.load(f"{work}/tp.{r}.pt") for r in range(2)]
+
+    # 20: the dp-2 service against the dp-1 one. The candidates' scores are
+    # sums over the bucket that the two add in another order, through kernels
+    # and cuBLAS products whose plans depend on the rows: where the lowest
+    # differ by less than twice the scores' measured disagreement, the choice
+    # is a tie at the rounding level, and the images are held to this
+    # process's sampling of the dp-2 candidate. Both ranks must hold the same
+    # global scores, bit for bit (one all-reduce), and so choose alike.
+    one_choice = int(np.argmin(one_scores))
+    order = np.argsort(one_scores)
+    gap = float(one_scores[order[1]] - one_scores[order[0]])
+    spread = (one_scores[order] - one_scores[order[0]]).tolist()
+    score_err = float(np.abs(dp2["scores"] - one_scores).max())
+    score_tol = 1e-4 * float(np.abs(one_scores).max())
+    tie_tol = 2 * score_err
+    n_tied = sum(d <= tie_tol for d in spread)
+    tied = chosen != one_choice and one_scores[chosen] - one_scores[one_choice] <= tie_tol
+    ranks_agree = (lines[(20, 0)]["scores"] == lines[(20, 1)]["scores"]
+                   == dp2["scores"].tolist())
+    diff = np.abs(dp2["images"].astype(np.int32) - same_images.astype(np.int32))
+    img_err = float(np.linalg.norm(diff) / np.linalg.norm(same_images.astype(np.float64)))
+    within1 = float((diff <= 1).mean())
+    per_group = expected(flash_attention=520, geglu_ff=780)
+    log(f"[dp_serve] {card}: a bucket of {DP_BUCKET} (50 steps, CFG 4.0, 10 candidates in the "
+        f"batched search, 512² uint8) on 2 ranks ({DP_BUCKET // 2} rows each) against one "
+        f"process: global scores max abs diff {score_err:.3e} (tolerance {score_tol:.3e}, 1e-4 "
+        f"of the largest), the two ranks' global scores bit-equal {ranks_agree}, chosen "
+        f"candidate {chosen} / {one_choice}, gap between the two lowest {gap:.4e}; the 10 "
+        f"scores above the lowest (one process) {['%.3e' % d for d in spread]}, {n_tied} of "
+        f"them within the tie tolerance {tie_tol:.3e} (twice the measured disagreement)"
+        + (f" (a tie: the images below are against this process's sampling of candidate "
+           f"{chosen} from the same draws)" if tied else "")
+        + f"; images relative L2 {img_err:.3e} (tolerance 5e-2, phase 5b's: the kernels' and "
+        f"cuBLAS's plans depend on the rows), max abs {int(diff.max())}, share within one uint8 "
+        f"step {within1:.4f}; replay coordinates equal "
+        f"{dp2['coords'].tolist() == [list(c) for c in one_coords]}")
+    for r in range(2):
+        rec = lines[(20, r)]
+        log(f"[dp_serve] rank {r}: {rec['groups']} group(s) in {rec['s']:.2f} s, peak device memory "
+            f"{rec['peak_gib']:.2f} GiB (reset counter), launches {rec['launches']}")
+    log(f"[dp_serve] one process: the group in {one_s:.2f} s, launches {one_launches} (the two "
+        f"ranks shared the card with this process: no time here is a speed-up figure)")
+    by_path["dp_serve"] = lines[(20, 0)]["launches"]
+    if (img_err > 5e-2 or score_err > score_tol or not ranks_agree
+            or (chosen != one_choice and not tied)
+            or dp2["coords"].tolist() != [list(c) for c in one_coords]
+            or any(lines[(20, r)]["launches"] != per_group for r in range(2))
+            or one_launches != per_group or [lines[(20, r)]["groups"] for r in range(2)] != [1, 1]):
+        fail("phase 20: the dp-2 service disagrees with one process (images, scores or the "
+             "candidate), the ranks' global scores differ, a rank launched other than 520 flash "
+             "and 780 GEGLU kernels, or the worker did not end at shutdown")
+
+    # 21: the tensor-parallel step against the unsharded one
+    tp_loss = lines[(21, 0)]["loss"]
+    loss_err = abs(tp_loss - ref_loss) / abs(ref_loss)
+    g_diff = g_norm = 0.0
+    beyond = excess = 0
+    rep_diff = 0.0
+    for n, (p_ref, g_ref) in ref.items():
+        key = n
+        if key in plan.rules:
+            g_tp = sharding.gather_tensor([t_["grads"][n] for t_ in tp_parts], plan.rules[key])
+            p_tp = sharding.gather_tensor([t_["params"][n] for t_ in tp_parts], plan.rules[key])
+        else:  # replicated: rank 1's gradient and update are rank 0's
+            g_tp, p_tp = tp_parts[0]["grads"][n], tp_parts[0]["params"][n]
+            rep_diff = max(rep_diff, float((tp_parts[1]["grads"][n].float() - g_tp.float())
+                                           .abs().max()),
+                           float((tp_parts[1]["params"][n].float() - p_tp.float()).abs().max()))
+        g_tp, g_ref = g_tp.double(), g_ref.double()
+        g_diff += float((g_tp - g_ref).square().sum())
+        g_norm += float(g_ref.square().sum())
+        d_ = (p_tp.double() - p_ref.double()).abs()
+        decided = 2 * TP_LR * torch.clamp((g_tp - g_ref).abs() / g_ref.abs().clamp_min(1e-8),
+                                          max=1)
+        beyond += int((d_ > 1e-6).sum())
+        excess += int((d_ > 1e-6 + decided).sum())
+    grad_err = (g_diff / g_norm) ** 0.5
+    moved = sum(not torch.equal(tp_parts[0]["params"][n], sharding.shard_tensor(
+        start[n], plan.rules[n], 0, 2) if n in plan.rules else start[n]) for n in ref)
+    whole = lines[(21, 0)]["whole"]
+    ds1 = [f"unet.{b_}.1.transformer_blocks.0.{a_}" for b_ in
+           ("input_blocks.1", "input_blocks.2", "output_blocks.9", "output_blocks.10",
+            "output_blocks.11") for a_ in ("attn1", "t_attn")]
+    per_micro = expected(flash_attention=10, flash_attention_bwd=9, geglu_ff=15)
+    log(f"[tp_train] {card}: one step of {TP_MICRO} synthetic 512² samples at tensor degree 2 "
+        f"(TEXTDESIGN_SD_2_TRAIN, bf16, fp32 master weights, seeded weights and draws) against "
+        f"the unsharded step: loss {tp_loss:.6f} / {ref_loss:.6f}, relative error {loss_err:.2e} "
+        f"(tolerance 1e-2: bf16 partial sums added once more per row-parallel product); "
+        f"trainable gradients' relative L2 {grad_err:.3e} (tolerance 5e-2); updated parameters: "
+        f"{beyond} elements differ by more than 1e-6, {excess} by more than their gradients' "
+        f"disagreement lets Adam's first step differ (tolerance 0); {moved} of {len(ref)} "
+        f"trainable tensors moved; replicated gradients' and updated parameters' largest "
+        f"difference between the two ranks {rep_diff:.3e} (tolerance 0); shard then gather of the state dict bit-equal {bit_equal}; kept "
+        f"whole (tp_report): {len(whole)} modules {whole}")
+    for r in range(2):
+        rec = lines[(21, r)]
+        log(f"[tp_train] rank {r}: the step in {rec['s']:.2f} s, peak device memory "
+            f"{rec['peak_gib']:.2f} GiB (reset counter), launches {rec['launches']} (predicted "
+            f"per micro-batch {per_micro})")
+    log(f"[tp_train] the unsharded step in this process {ref_s:.2f} s (shared card: not a "
+        f"speed-up figure)")
+    by_path["tp_train"] = lines[(21, 0)]["launches"]
+    if (loss_err > 1e-2 or grad_err > 5e-2 or excess or moved != len(ref) or not bit_equal
+            or rep_diff != 0 or sorted(whole) != sorted(ds1)
+            or any(lines[(21, r)]["launches"] != per_micro for r in range(2))):
+        fail("phase 21: the tensor-parallel step disagrees with the unsharded one, or the two "
+             "ranks' replicated gradients or updates differ, or the launches or tp_report "
+             "are not the predicted ones")
+    return time.perf_counter() - t_phase
+
+
 def main() -> None:
     import torch
 
@@ -1515,8 +1889,7 @@ def main() -> None:
     from udifftext_tpu_torch.serving import InpaintService
     from udifftext_tpu_torch.train import to_device, train
 
-    kernel_fns = (flash_attention, flash_attention_bwd, geglu_ff, ln_gemm, ln_gemm3,
-                  fused_cross_attention, geglu_ff_ln, fused_groupnorm_silu, flash_variant)
+    kernel_fns = kernel_wrappers()
 
     def expected(**launched) -> dict:
         """A path's launch counts: the named kernels, and 0 for every other."""
@@ -3362,6 +3735,11 @@ def main() -> None:
     if data_s > 60:
         fail(f"phase 19 took {data_s:.1f} s (limit 60)")
 
+    # 20-21. the multi-card paths: the dp-2 service and the tensor-parallel
+    # step, each on two ranks against one process
+    multi_s = multicard_phases(dev, card, kernel_fns, expected, by_path)
+    log(f"[phases] 20-21 (dp serving, tensor-parallel step) {multi_s:.1f} s")
+
     kernels = []
     for name, src, replaces, key, path in (
         ("flash_attention_fwd", "udifftext_tpu_torch/csrc/flash_attention.cu",
@@ -3401,4 +3779,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--multicard-rank"]:
+        multicard_child(sys.argv[2])
+    else:
+        main()

@@ -452,9 +452,63 @@ def test_http_server_reports_model_failure_as_500():
         svc.shutdown()
 
 
-def test_build_service_refuses_several_cards():
-    with pytest.raises(NotImplementedError, match="several cards"):
+def test_serve_stops_when_the_data_parallel_group_breaks():
+    """`serve` returns, having shut the service down, once `broken` is set
+    (the data-parallel predictor's mark of a failed group). It runs on the
+    test's thread, which its SIGTERM handler needs; a SIGTERM after 20 s
+    ends it should `broken` not."""
+    import os
+    import signal
+
+    svc = InpaintService(_echo_predictor(16, []), max_batch=1, size=16)
+    broken = threading.Event()
+    backstop = threading.Timer(20.0, os.kill, (os.getpid(), signal.SIGTERM))
+    old = signal.getsignal(signal.SIGTERM)
+    threading.Timer(0.3, broken.set).start()
+    backstop.start()
+    t0 = time.monotonic()
+    try:
+        serve.serve(svc, 0, threading.Event(), broken)
+    finally:
+        backstop.cancel()
+        signal.signal(signal.SIGTERM, old)
+    assert time.monotonic() - t0 < 15.0
+    with pytest.raises(RuntimeError):
+        svc.submit(InpaintRequest(image=np.zeros((16, 16, 3), np.uint8),
+                                  mask=np.ones((16, 16), np.uint8), text="a"))
+
+
+def test_build_service_dp_needs_a_process_group(monkeypatch):
+    """dp > 1 outside a process group of dp processes raises before any
+    engine is built."""
+    for var in ("RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(ValueError, match="needs a process group of 2 processes"):
         serve.build_service({}, U.tiny_model_cfg(), "cpu", dp=2)
+
+
+def test_build_service_dp_must_equal_world_size(monkeypatch):
+    """A dp other than the process group's size is refused, by the service
+    (inside a one-process gloo group) and by the CLI (before the group)."""
+    import socket
+
+    import torch.distributed as tdist
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    for k, v in dict(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK="0",
+                     WORLD_SIZE="1", LOCAL_RANK="0").items():
+        monkeypatch.setenv(k, v)
+    try:
+        with pytest.raises(ValueError, match=r"--dp 2 must equal .*WORLD_SIZE 1"):
+            serve.build_service({}, U.tiny_model_cfg(), "cpu", dp=2)
+        assert tdist.is_initialized() and tdist.get_world_size() == 1
+    finally:
+        if tdist.is_initialized():
+            tdist.destroy_process_group()
+    with pytest.raises(SystemExit, match="--dp 2 must equal WORLD_SIZE"):
+        serve.main(["--dp", "2", "--device", "cpu"])
 
 
 # -- pipelined dispatch (launch/finalize split) ------------------------------

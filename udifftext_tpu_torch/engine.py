@@ -25,6 +25,13 @@ Noise is injectable: every random draw of `loss` and `sample` may be given
 explicitly; otherwise it is drawn from `generator` in the order each method
 documents. This is how the port is held to the JAX engine, whose threefry
 draws torch cannot reproduce.
+
+Data parallelism (`sample(..., data_group=)`, `predict.Predictor`): each
+process samples its own rows of a global batch, and the two choices that the
+JAX package makes over the global batch read sums over the group: the
+init-noise search's scores (one candidate for the whole batch) and
+attend-and-excite's threshold test (every process iterates as often). Without
+a group the engine makes no collective call.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from .conditioning import Conditioner, GeneralConditioner
@@ -55,6 +63,13 @@ from .ocr import ParseqPredictor
 Batch = Dict[str, torch.Tensor]
 
 AAE_MAX_ITER = 20  # extra refinement iterations per enabled step
+
+
+def group_sum(t: torch.Tensor, group: Any) -> torch.Tensor:
+    """`t` summed over the processes of `group` (a new tensor)."""
+    t = t.detach().clone()
+    dist.all_reduce(t, group=group)
+    return t
 
 
 def aae_schedule(num_steps: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -201,7 +216,10 @@ class DiffusionEngine(nn.Module):
     def network(self, capture_attn: bool = False, ctx_kv=None, method=None) -> Callable:
         """The UNet with the conditioning's channel concat in front; `method`
         picks another UNet entry point taking no capture_attn
-        (`unet.forward_cached` for encoder propagation)."""
+        (`unet.forward_cached` for encoder propagation). A tensor-parallel
+        UNet's captured maps come back with each sharded layer's heads
+        averaged over the tensor group (`TensorParallel.head_mean_maps`), so
+        that the losses' head mean is the whole layer's."""
 
         def net(x: torch.Tensor, c_noise: torch.Tensor, cond: Dict[str, Any]):
             if "concat" in cond:
@@ -209,7 +227,10 @@ class DiffusionEngine(nn.Module):
             tc, vc, y = cond.get("t_crossattn"), cond.get("v_crossattn"), cond.get("vector")
             if method is not None:
                 return method(x, c_noise, tc, vc, y, ctx_kv=ctx_kv)
-            return self.unet(x, c_noise, tc, vc, y, capture_attn=capture_attn, ctx_kv=ctx_kv)
+            out, maps = self.unet(x, c_noise, tc, vc, y, capture_attn=capture_attn, ctx_kv=ctx_kv)
+            if capture_attn and self.unet.tp is not None:
+                maps = self.unet.tp.head_mean_maps(maps)
+            return out, maps
 
         return net
 
@@ -272,7 +293,7 @@ class DiffusionEngine(nn.Module):
 
     def get_init_noise(
         self, c, uc, batch: Batch, noise: torch.Tensor, cfg_scale: float = 5.0,
-        candidate_batched: bool = False,
+        candidate_batched: bool = False, data_group: Any = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Init-noise search over the candidates `noise` (K, B, h, w, 4):
         each is scored by the summed min-local loss of a 2-step rollout, and
@@ -280,7 +301,11 @@ class DiffusionEngine(nn.Module):
         scores (K,)).
 
         candidate_batched=True stacks the candidates on the batch axis: 2 UNet
-        evals at batch K·B instead of 2·K at batch B, the same function."""
+        evals at batch K·B instead of 2·K at batch B, the same function.
+
+        With a `data_group`, `noise` and the batch are this process's rows of
+        a global batch: the scores are summed over the group before the
+        choice, so every process takes the candidate the global batch would."""
         k, b = noise.shape[:2]
         sigmas = torch.as_tensor(self.discretization(2, do_append_zero=True), device=noise.device)
         mask, seg_mask = batch["mask"], batch["seg_mask"]
@@ -294,23 +319,18 @@ class DiffusionEngine(nn.Module):
             x = SP.init_latent(noise.reshape((k * b,) + noise.shape[2:]), sigmas)
             loss = self._rollout_loss(denoise, x, sigmas, tile(mask), tile(seg_mask))
             scores = loss.reshape(k, b).sum(dim=1)
-            return noise[torch.argmin(scores)], scores
-
-        denoise = self.make_denoise_fn(c, uc, cfg_scale, capture_attn=True)
-        best = torch.zeros_like(noise[0])
-        best_score = torch.tensor(float("inf"), device=noise.device)
-        scores = []
-        for i in range(k):
-            s = self._rollout_loss(denoise, SP.init_latent(noise[i], sigmas), sigmas,
-                                   mask, seg_mask).sum()
-            better = s < best_score  # strict: the first minimum stays
-            best = torch.where(better, noise[i], best)
-            best_score = torch.where(better, s, best_score)
-            scores.append(s)
-        return best, torch.stack(scores)
+        else:
+            denoise = self.make_denoise_fn(c, uc, cfg_scale, capture_attn=True)
+            scores = torch.stack([
+                self._rollout_loss(denoise, SP.init_latent(noise[i], sigmas), sigmas, mask,
+                                   seg_mask).sum() for i in range(k)])
+        if data_group is not None:
+            scores = group_sum(scores, data_group)
+        return noise[torch.argmin(scores)], scores  # argmin: the first minimum
 
     def _aae_update(self, c, batch: Batch, x: torch.Tensor, sigma: torch.Tensor, alpha: float,
-                    iter_enabled: bool, thres: float, ctx_kv) -> torch.Tensor:
+                    iter_enabled: bool, thres: float, ctx_kv,
+                    data_group: Any = None) -> torch.Tensor:
         """Attend-and-excite: gradient descent of x on the summed min-local
         loss of the unguided UNet on `c` (whose cross-attention K/V the
         caller hoisted into `ctx_kv`). The UNet is fed RAW x, not the
@@ -318,7 +338,9 @@ class DiffusionEngine(nn.Module):
         (the step sizes and thresholds assume that loss surface). One update
         always; then, where `iter_enabled`, more while the loss before the
         last update is above `thres`, at most AAE_MAX_ITER. Each extra
-        iteration reads the loss on the host once."""
+        iteration reads the loss on the host once; with a `data_group` that
+        loss is summed over the group first, so that every process runs as
+        many iterations as the global batch would."""
         network = self.network(capture_attn=True, ctx_kv=ctx_kv)
         kernel = torch.as_tensor(self.loss_cfg.kernel, device=x.device)
         sigma_q = self.denoiser.quantize_sigma(sigma)
@@ -336,7 +358,8 @@ class DiffusionEngine(nn.Module):
         with torch.enable_grad():
             x, val = step(x)
             it = 1
-            while iter_enabled and it <= AAE_MAX_ITER and val.item() > thres:
+            while iter_enabled and it <= AAE_MAX_ITER and (
+                    val if data_group is None else group_sum(val, data_group)).item() > thres:
                 x, val = step(x)
                 it += 1
         return x
@@ -356,7 +379,8 @@ class DiffusionEngine(nn.Module):
                 for j, spec in enumerate(specs) if spec.kind == "attn"}
 
     def _sample_guided(self, c, uc, batch: Batch, x: torch.Tensor, sigmas: torch.Tensor,
-                       cfg_scale: float, aae_enabled: bool, detailed: bool):
+                       cfg_scale: float, aae_enabled: bool, detailed: bool,
+                       data_group: Any = None):
         """The Euler loop with attend-and-excite before each step and/or the
         middle step's conditional t_attn maps kept. Returns (x, the middle
         step's maps ({} unless detailed), per-step {"inter": sample 0's
@@ -378,7 +402,7 @@ class DiffusionEngine(nn.Module):
             sigma = sigmas[i].expand(b).to(x.dtype)
             if aae_enabled:
                 x = self._aae_update(c, batch, x, sigma, float(alphas[i]), bool(iter_en[i]),
-                                     float(thres[i]), aae_kv)
+                                     float(thres[i]), aae_kv, data_group)
             denoised, aux = denoise(x, sigma)
             if detailed and i == mid:
                 for k in saved:
@@ -408,6 +432,7 @@ class DiffusionEngine(nn.Module):
         return_latents: bool = False,
         latent_hw: Optional[Tuple[int, int]] = None,
         encprop_interval: int = 0,
+        data_group: Any = None,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Text inpainting (test.py predict() semantics) → (images in [0, 1]
         (B, H, W, 3), aux). aux["noise_scores"] holds the search's scores;
@@ -426,7 +451,12 @@ class DiffusionEngine(nn.Module):
         only, `uniform_key_mask`); it is ignored under aae_enabled or
         detailed, which need every step's maps, and refused for a UNet with
         the ctrl block. The engine does not consult the quality gate: the
-        entry points do (`Predictor` at construction)."""
+        entry points do (`Predictor` at construction).
+
+        data_group: the batch is this process's rows of a global batch that
+        the group's processes sample together (`predict.Predictor` slices it
+        and gathers the results); the search and attend-and-excite read
+        sums over the group."""
         if encprop_interval > 1 and not (aae_enabled or detailed):
             self.unet.refuse_ctrl()
         b, h, w = batch["masked"].shape[:3]
@@ -434,10 +464,8 @@ class DiffusionEngine(nn.Module):
             latent_hw = (h // self.latent_factor, w // self.latent_factor)
         shape = (b, int(latent_hw[0]), int(latent_hw[1]), 4)
         dev = self.device
-        if posterior_eps is None:
-            posterior_eps = torch.randn(shape, generator=generator, device=dev)
-        if noise is None:
-            noise = torch.randn((max(noise_iters, 1),) + shape, generator=generator, device=dev)
+        posterior_eps, noise = self.sample_draws(shape, generator, noise_iters, posterior_eps,
+                                                 noise)
         if noise.shape[1:] != shape or noise.shape[0] != max(noise_iters, 1):
             raise ValueError(f"noise must be {(max(noise_iters, 1),) + shape}, "
                              f"got {tuple(noise.shape)}")
@@ -446,15 +474,15 @@ class DiffusionEngine(nn.Module):
         aux: Dict[str, torch.Tensor] = {}
         if noise_iters > 0:
             x0, aux["noise_scores"] = self.get_init_noise(
-                c, uc, batch, noise, cfg_scale, candidate_batched=noise_search_batched
-            )
+                c, uc, batch, noise, cfg_scale, candidate_batched=noise_search_batched,
+                data_group=data_group)
         else:
             x0 = noise[0]
         sigmas = torch.as_tensor(self.discretization(num_steps, do_append_zero=True), device=dev)
         x = SP.init_latent(x0, sigmas)
         if aae_enabled or detailed:
             z, maps, per_step = self._sample_guided(c, uc, batch, x, sigmas, cfg_scale,
-                                                    aae_enabled, detailed)
+                                                    aae_enabled, detailed, data_group)
             aux.update(maps)
             if per_step is not None:
                 inters = torch.cat([self.decode_first_stage(f[None]) for f in per_step["inter"]])
@@ -469,6 +497,20 @@ class DiffusionEngine(nn.Module):
             return z, aux
         img = self.decode_first_stage(z)
         return torch.clamp((img + 1.0) / 2.0, 0.0, 1.0), aux
+
+    def sample_draws(self, shape: Tuple[int, ...], generator: Optional[torch.Generator],
+                     noise_iters: int, posterior_eps: Optional[torch.Tensor] = None,
+                     noise: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """`sample`'s draws for latents of `shape` (B, h, w, 4): the given
+        ones, the others from `generator` in this order: posterior_eps
+        (B, h, w, 4), noise (max(noise_iters, 1), B, h, w, 4)."""
+        dev = self.device
+        if posterior_eps is None:
+            posterior_eps = torch.randn(shape, generator=generator, device=dev)
+        if noise is None:
+            noise = torch.randn((max(noise_iters, 1),) + tuple(shape), generator=generator,
+                                device=dev)
+        return posterior_eps, noise
 
     @torch.no_grad()
     def log_images(

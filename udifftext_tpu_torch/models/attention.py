@@ -11,6 +11,12 @@ pre-LayerNorm into its consumer (ops/ln_gemm.py, ops/cross_attention.py,
 ops/geglu.py `geglu_ff_ln`): a block-level A/B configuration, as in the JAX
 build, with the same state-dict keys either way. The fused branches take the
 raw x and the norm's `(weight, bias)` as `ln`.
+
+Tensor parallelism (`parallel/sharding.shard_model_`) sets `tp` on the
+attention and feed-forward modules it shards: they then hold their rank's
+heads / hidden units, take their input through Megatron's f and sum their
+row-parallel output over the tensor group (g). The fused branches are not
+sharded.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from ..ops.cross_attention import (
 )
 from ..ops.geglu import geglu_ff, geglu_ff_ln
 from ..ops.ln_gemm import ln_gemm3, ln_gemm3_supported, ln_ref_f32
+from ..parallel.sharding import copy_to_tensor_parallel, reduce_from_tensor_parallel
 from .layers import Dense, GroupNorm32, LayerNormF32, zero_init
 
 KV = Tuple[torch.Tensor, torch.Tensor]
@@ -65,6 +72,7 @@ class SelfAttention(nn.Module):
         self.to_k = Dense(dim, inner, bias=False)
         self.to_v = Dense(dim, inner, bias=False)
         self.to_out = nn.ModuleList([Dense(inner, dim)])
+        self.tp = None  # sharding.TensorParallel once sharded
 
     def forward(self, x: torch.Tensor, ln: Optional[LN] = None) -> torch.Tensor:
         """With `ln`, x is the raw input and the LayerNorm is applied here:
@@ -75,6 +83,8 @@ class SelfAttention(nn.Module):
         if not self.fuse_qkv:
             if ln is not None:
                 x = ln_ref_f32(x, ln[0], ln[1])
+            if self.tp is not None:
+                x = copy_to_tensor_parallel(x, self.tp.group)
             q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)
         else:
             wq, wk, wv = (m.weight.to(x.dtype) for m in (self.to_q, self.to_k, self.to_v))
@@ -85,7 +95,10 @@ class SelfAttention(nn.Module):
                     x = ln_ref_f32(x, ln[0], ln[1])
                 q, k, v = F.linear(x, torch.cat([wq, wk, wv], dim=0)).chunk(3, dim=-1)
         out = sdpa(q.reshape(shape), k.reshape(shape), v.reshape(shape), impl=self.attn_impl)
-        return self.to_out[0](out.reshape(b, n, self.heads * self.dim_head))
+        out = out.reshape(b, n, self.heads * self.dim_head)
+        if self.tp is not None:
+            return self.tp.row_parallel(out, self.to_out[0].weight, self.to_out[0].bias)
+        return self.to_out[0](out)
 
 
 class CrossAttention(nn.Module):
@@ -101,11 +114,14 @@ class CrossAttention(nn.Module):
         self.to_v = Dense(context_dim, inner, bias=False)
         # zero-initialized, as in the reference (attention.py:129-134)
         self.to_out = nn.ModuleList([zero_init(Dense(inner, dim))])
+        self.tp = None  # sharding.TensorParallel once sharded
 
     def project_kv(self, context: torch.Tensor) -> KV:
         """The context's K/V, (B, L, heads, dim_head) each; constant across
         sampling steps, so samplers compute it once."""
         b, l, _ = context.shape
+        if self.tp is not None:
+            context = copy_to_tensor_parallel(context, self.tp.group)
         shape = (b, l, self.heads, self.dim_head)
         return self.to_k(context).reshape(shape), self.to_v(context).reshape(shape)
 
@@ -137,11 +153,17 @@ class CrossAttention(nn.Module):
             residual = x
             x = ln_ref_f32(x, ln[0], ln[1])
         k, v = self.project_kv(context) if kv is None else kv
+        if self.tp is not None:
+            x = copy_to_tensor_parallel(x, self.tp.group)
         q = self.to_q(x).reshape(b, n, self.heads, self.dim_head)
         sim = (torch.einsum("bnhd,blhd->bhnl", q, k) * self.dim_head**-0.5).float()
         attn = torch.softmax(sim, dim=-1) if k.shape[1] > 1 else torch.sigmoid(sim)
         out = torch.einsum("bhnl,blhd->bnhd", attn.to(x.dtype), v)
-        out = self.to_out[0](out.reshape(b, n, self.heads * self.dim_head))
+        out = out.reshape(b, n, self.heads * self.dim_head)
+        if self.tp is not None:
+            out = self.tp.row_parallel(out, self.to_out[0].weight, self.to_out[0].bias)
+        else:
+            out = self.to_out[0](out)
         if residual is not None:
             out = out + residual
         return out, (attn if capture_map else None)
@@ -200,12 +222,24 @@ class GEGLUFeedForward(nn.Module):
             raise ValueError(f"GEGLUFeedForward: impl must be one of {FF_IMPLS}, got {impl!r}")
         self.impl = impl
         self.net = nn.ModuleList([_Proj(dim, 2 * mult * dim), nn.Identity(), Dense(mult * dim, dim)])
+        self.tp = None  # sharding.TensorParallel once sharded
 
     def forward(self, x: torch.Tensor, ln: Optional[LN] = None) -> torch.Tensor:
+        """Sharded (`tp`), the rank's [h_t | g_t] hidden units of the
+        unfused path, b2 once, the partial outputs summed over the group."""
+        if self.tp is not None:
+            if ln is not None:
+                x = ln_ref_f32(x, ln[0], ln[1])
+            x = copy_to_tensor_parallel(x, self.tp.group)
+            return reduce_from_tensor_parallel(self._ff(x, self.tp.once(self.net[2].bias)),
+                                               self.tp.group)
+        return self._ff(x, self.net[2].bias, ln)
+
+    def _ff(self, x: torch.Tensor, b2: torch.Tensor, ln: Optional[LN] = None) -> torch.Tensor:
         proj, out = self.net[0].proj, self.net[2]
         dt = x.dtype
         w1, b1 = proj.weight.to(dt), proj.bias.to(dt)
-        w2, b2 = out.weight.to(dt), out.bias.to(dt)
+        w2, b2 = out.weight.to(dt), b2.to(dt)
         if self.impl == "fused" or (self.impl == "auto" and geglu_auto_ok(x)):
             if ln is not None:
                 return geglu_ff_ln(x.contiguous(), ln[0], ln[1], w1, b1, w2, b2)

@@ -236,6 +236,9 @@ class UNetModel(nn.Module):
             [GroupNorm32(model_channels), nn.SiLU(),
              zero_init(Conv3x3(model_channels, out_channels))]
         )
+        # the tensor group's `parallel.sharding.TensorParallel` once
+        # `sharding.shard_model_` has sharded the transformer blocks
+        self.tp = None
 
     def _blocks(self):
         """(path prefix, modules, specs) of every block in execution order."""
@@ -244,6 +247,22 @@ class UNetModel(nn.Module):
         yield "middle_block", self.middle_block, self.plan.middle_block
         for i, (mods, specs) in enumerate(zip(self.output_blocks, self.plan.output_blocks)):
             yield f"output_blocks.{i}", mods, specs
+
+    def map_key(self, prefix: str, j: int, d: int) -> str:
+        """The key of the t_attn map of block d of the transformer at
+        `prefix`.j."""
+        return (f"{prefix}.{j}.t_attn" if self.transformer_depth == 1
+                else f"{prefix}.{j}.blocks_{d}.t_attn")
+
+    def map_layers(self):
+        """(map key, module path, heads) of every t_attn layer."""
+        for prefix, mods, specs in self._blocks():
+            for j, (m, s) in enumerate(zip(mods, specs)):
+                if s.kind == "attn":
+                    for d, blk in enumerate(m.transformer_blocks):
+                        if blk.has_t:
+                            yield (self.map_key(prefix, j, d),
+                                   f"{prefix}.{j}.transformer_blocks.{d}.t_attn", s.heads)
 
     def precompute_context_kv(
         self, t_context: Optional[torch.Tensor], v_context: Optional[torch.Tensor] = None
@@ -276,9 +295,7 @@ class UNetModel(nn.Module):
                     for d, amap in enumerate(maps):
                         if amap is None:
                             continue
-                        key = (f"{prefix}.{j}.t_attn" if self.transformer_depth == 1
-                               else f"{prefix}.{j}.blocks_{d}.t_attn")
-                        attn_maps[key] = amap
+                        attn_maps[self.map_key(prefix, j, d)] = amap
             else:
                 h = m(h)
         return h

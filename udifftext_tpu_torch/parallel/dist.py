@@ -18,17 +18,29 @@ the processes. Every process computes the same global loss from the
 gathered rows, so the summed gradient of its own rows is W times that
 loss's gradient, and the mean that `all_reduce_mean_` then takes of the
 parameter gradients is the global loss's gradient.
+
+Every process group has a finite timeout (`TIMEOUT_S`): a collective that a
+dead rank never joins fails the run instead of hanging it. `all_reduce_mean_`
+takes a `group` (`parallel/mesh.make_groups`); None is the world.
 """
 
 from __future__ import annotations
 
+import datetime
 import os
-from typing import List, Sequence, Tuple
+from typing import Any, List, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 BUCKET_BYTES = 256 * 2**20  # flat buffer per all-reduce: 75.9 M fp32 gradients go in two
+# a collective waits this long for the other ranks: past the first kernel build
+# (minutes with a cold nvcc cache), short of a hung run
+TIMEOUT_S = 900
+
+
+def group_timeout() -> datetime.timedelta:
+    return datetime.timedelta(seconds=TIMEOUT_S)
 
 
 def is_distributed() -> bool:
@@ -52,7 +64,8 @@ def maybe_init_distributed(device: torch.device | str = "cuda") -> torch.device:
         dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
         torch.cuda.set_device(dev)
     if not is_distributed():
-        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo", init_method="env://")
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo", init_method="env://",
+                                timeout=group_timeout())
         rank, world = rank_and_world()
         print(f"distributed: process {rank}/{world} on {dev}", flush=True)
     return dev
@@ -72,20 +85,23 @@ def _buckets(tensors: Sequence[torch.Tensor], cap: int) -> List[List[torch.Tenso
 
 
 @torch.no_grad()
-def all_reduce_mean_(tensors: Sequence[torch.Tensor], bucket_bytes: int = BUCKET_BYTES) -> None:
-    """In place: each tensor ← its mean over the process group, by one
-    all-reduce of a flat buffer per bucket of one dtype. A no-op without a
-    process group."""
+def all_reduce_mean_(tensors: Sequence[torch.Tensor], bucket_bytes: int = BUCKET_BYTES,
+                     group: Any = None) -> None:
+    """In place: each tensor ← its mean over `group` (the world for None),
+    by one all-reduce of a flat buffer per bucket of one dtype. A no-op
+    without a process group or over a group of one."""
     if not is_distributed():
         return
-    world = dist.get_world_size()
+    world = dist.get_world_size(group)
+    if world == 1:
+        return
     by_dtype = {}
     for t in tensors:
         by_dtype.setdefault(t.dtype, []).append(t)
-    for group in by_dtype.values():
-        for bucket in _buckets(group, bucket_bytes):
+    for same_dtype in by_dtype.values():
+        for bucket in _buckets(same_dtype, bucket_bytes):
             flat = torch.cat([t.reshape(-1) for t in bucket])
-            dist.all_reduce(flat)
+            dist.all_reduce(flat, group=group)
             flat.div_(world)
             offset = 0
             for t in bucket:
@@ -125,6 +141,11 @@ def broadcast_int(value: int, device: torch.device | str) -> int:
     t = torch.tensor([int(value)], dtype=torch.int64, device=device)
     dist.broadcast(t, src=0)
     return int(t.item())
+
+
+def group_src(group: Any = None) -> int:
+    """The global rank of `group`'s first process (0 for the world)."""
+    return 0 if group is None else dist.get_global_rank(group, 0)
 
 
 def rank_seed(seed: int, rank: int) -> int:

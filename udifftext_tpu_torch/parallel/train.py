@@ -15,6 +15,15 @@
     the trainable gradients are averaged over the processes (one bucketed
     all-reduce, `dist.all_reduce_mean_`), and so are the returned loss and
     components, so every process logs the global mean.
+  - Tensor parallelism (`parallel/sharding.shard_model_` over the tensor
+    groups of `parallel/mesh.make_groups`): the model holds its shards and
+    its f/g collectives, so the step is the same; the gradient mean runs
+    over `data_group` only. A replicated parameter gets the same gradient on
+    every rank of a tensor group (f all-reduces the gradient of every
+    sharded module's input), the optimizer state and the EMA of a sharded
+    parameter are its shard's. The train CLI builds no tensor groups, as the
+    JAX `train.py` builds a data-only mesh: tensor parallelism is reached
+    through this API, as the JAX `make_train_step(state_sharding_tree=...)`.
   - EMA of the trainable parameters (LitEma warm-up decay), updated in
     place after each update. The JAX build keeps an EMA of every parameter;
     a frozen one's EMA is the parameter itself, so the port stores none.
@@ -231,12 +240,14 @@ class TrainState:
 
 
 def train_step(state: TrainState, micro_batches: Sequence[Any], loss_fn: LossFn,
-               ema_decay: float = 0.9999) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+               ema_decay: float = 0.9999,
+               data_group: Any = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One optimizer update from len(micro_batches) micro-batches: the
-    gradients averaged over them (and over the processes of a process
-    group), one AdamW update, then the EMA. Returns the loss and each aux
-    component averaged likewise (detached, on the device: without a process
-    group nothing here waits for the device)."""
+    gradients averaged over them (and over the processes of `data_group`,
+    the whole process group for None), one AdamW update, then the EMA.
+    Returns the loss and each aux component averaged likewise (detached, on
+    the device: without a process group nothing here waits for the
+    device)."""
     state.optimizer.zero_grad(set_to_none=True)
     loss_sum = None
     aux_sum: Dict[str, torch.Tensor] = {}
@@ -254,9 +265,9 @@ def train_step(state: TrainState, micro_batches: Sequence[Any], loss_fn: LossFn,
         for p in state.params.values():  # every process reduces the same buffers
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        dist.all_reduce_mean_([p.grad for p in state.params.values()])
+        dist.all_reduce_mean_([p.grad for p in state.params.values()], group=data_group)
         logged = torch.stack([loss_sum] + [aux_sum[k] for k in sorted(aux_sum)]).float()
-        dist.all_reduce_mean_([logged])
+        dist.all_reduce_mean_([logged], group=data_group)
         loss_sum = logged[0]
         aux_sum = {k: logged[i + 1] for i, k in enumerate(sorted(aux_sum))}
     lr = state.schedule(state.step)

@@ -22,6 +22,18 @@ with the float path's math (image / 127.5 − 1, mask > 0, masked = image ·
 (1 − mask)); the images come back as uint8, clip(images, 0, 1) · 255
 truncated. Float batches (the demo and eval flows) are untouched.
 
+Data parallelism (`data_group`, one process per card): every process of the
+group is called with the same global batch and the same generator state. Each
+draws the whole batch's posterior noise (B, h, w, 4) and candidates (K, B, h,
+w, 4), as one process would, keeps its own rows of them and of the batch
+(rank r of n takes rows r·B/n .. (r+1)·B/n), and samples them with the
+engine's group sums (`DiffusionEngine.sample(data_group=)`). The images, the
+per-step local losses and the captured maps come back whole on every process
+of the group: each fills its rows of a zeroed buffer and one all-reduce adds
+them up (sample 0's decoded intermediates of attend-and-excite are broadcast
+from the group's first process). The results do not depend on the group's size, injected draws
+included. A batch that the group does not divide raises.
+
 `encprop_interval` > 1 opts into APPROXIMATE encoder-propagation sampling.
 It is gated once, at construction (`utils.encprop_gate.gate_encprop` with
 `ckpt_id`, `min_quality_psnr` and the predictor's steps and scale): refused
@@ -35,7 +47,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from .parallel.dist import group_src
 from .utils.encprop_gate import DEFAULT_MIN_PSNR, gate_encprop
 
 # array fields DiffusionEngine.sample consumes; strings stay on the host
@@ -56,8 +70,10 @@ class Predictor:
         min_quality_psnr: Optional[float] = None,
         noise_search_batched: bool = False,
         noise_search_max_rows: int = 160,
+        data_group: Any = None,
     ):
         self.engine = engine
+        self.data_group = data_group
         self.num_steps = int(num_steps)
         self.cfg_scale = float(cfg_scale)
         self.encprop_interval = int(encprop_interval)
@@ -117,6 +133,18 @@ class Predictor:
         arr.update(image=img, mask=mask, masked=img * (1.0 - mask))
         return arr
 
+    def shard_rows(self, b: int) -> slice:
+        """This process's rows of a global batch of b (all of them without a
+        data group); raises where the group does not divide b."""
+        if self.data_group is None:
+            return slice(0, b)
+        n, r = dist.get_world_size(self.data_group), dist.get_rank(self.data_group)
+        if b % n != 0:
+            raise ValueError(
+                f"eval batch size {b} must be divisible by the data-mesh axis ({n} devices) — "
+                f"raise batch_size in the test config or disable eval_data_parallel")
+        return slice(r * (b // n), (r + 1) * (b // n))
+
     @torch.no_grad()
     def __call__(
         self,
@@ -126,19 +154,53 @@ class Predictor:
         noise: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(images (B, H, W, 3), aux) of `engine.sample`: images in [0, 1],
-        or uint8 for a uint8 batch."""
+        or uint8 for a uint8 batch. With a data group, `batch` is the global
+        batch and every process gets the whole result (aux["inters"], sample
+        0's, comes from the group's first process)."""
         arr = self.array_batch(batch)
         uint8_in = "image" in arr and arr["image"].dtype == torch.uint8
         if uint8_in:
             arr = self.preprocess_uint8(arr)
         b = next(iter(arr.values())).shape[0]
+        rows = self.shard_rows(b)
+        if self.data_group is not None:
+            h, w = arr["masked"].shape[1:3]
+            lf = self.engine.latent_factor
+            posterior_eps, noise = self.engine.sample_draws(
+                (b, h // lf, w // lf, 4), generator, self.noise_iters, posterior_eps, noise)
+            dev = self.engine.device
+            arr = {k: v[rows] for k, v in arr.items()}
+            posterior_eps, noise = posterior_eps[rows].to(dev), noise[:, rows].to(dev)
+            generator = None
         batched = self.noise_search_batched and self.noise_iters * b <= self.noise_search_max_rows
         images, aux = self.engine.sample(
             arr, generator, num_steps=self.num_steps, cfg_scale=self.cfg_scale,
             noise_iters=self.noise_iters, aae_enabled=self.aae_enabled, detailed=self.detailed,
             noise_search_batched=batched, posterior_eps=posterior_eps, noise=noise,
-            encprop_interval=self.encprop_interval,
+            encprop_interval=self.encprop_interval, data_group=self.data_group,
         )
         if uint8_in:
             images = (images.clamp(0.0, 1.0) * 255.0).to(torch.uint8)
+        if self.data_group is not None:
+            images = self._gather(images, 0, b, rows)
+            for k in list(aux):
+                if k == "local_losses":
+                    aux[k] = self._gather(aux[k], 1, b, rows)
+                elif k.endswith("t_attn"):
+                    aux[k] = self._gather(aux[k], 0, b, rows)
+            if "inters" in aux:
+                dist.broadcast(aux["inters"], src=group_src(self.data_group),
+                               group=self.data_group)
         return images, aux
+
+    def _gather(self, t: torch.Tensor, axis: int, b: int, rows: slice) -> torch.Tensor:
+        """The group's shards of `t` along `axis` (this process's rows at
+        `rows` of b) put together on every process: each fills its rows of a
+        zeroed buffer and one all-reduce sums them (uint8 and fp32 sum in
+        NCCL and gloo alike; x + 0 is exact)."""
+        shape = list(t.shape)
+        shape[axis] = b
+        out = torch.zeros(shape, dtype=t.dtype, device=t.device)
+        out.narrow(axis, rows.start, rows.stop - rows.start).copy_(t)
+        dist.all_reduce(out, group=self.data_group)
+        return out

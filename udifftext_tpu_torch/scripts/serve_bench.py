@@ -23,8 +23,13 @@ H100).
       [--buckets 1,8] [--pipeline 2] [--steps 50] [--scale 5.0]
       [--noise-iters 10] [--noise-search-batched] [--batches 4] [--qps 0.5]
       [--latency-requests 8] [--device cuda|cpu]
+  torchrun --nproc_per_node N -m udifftext_tpu_torch.scripts.serve_bench --dp N ...
 
 `run(...)` is the entry function (chip_smoke.py calls it with small counts).
+With dp > 1 it runs inside a process group of dp processes, through the
+service's data-parallel path (`scripts/serve.data_parallel_predict_fn`):
+rank 0 measures and returns the record, the other ranks serve its groups and
+return None.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ import numpy as np
 import torch
 
 from ..builders import TEXTDESIGN_SD_2
+from ..parallel import dist
 from ..serving import InpaintRequest, InpaintService
 from . import serve
 
@@ -97,14 +103,24 @@ def run(max_batch: int = 8, steps: int = 50, noise_iters: int = 10, batches: int
         buckets: Optional[Sequence[int]] = None, noise_search_batched: bool = False,
         pipeline: int = 1, saturated_delay_ms: float = 2000.0, cfg_scale: float = 5.0,
         model_cfg: Optional[Mapping[str, Any]] = None, size: int = 512,
-        device: str = "cuda") -> Bench:
+        device: str = "cuda", dp: int = 1) -> Optional[Bench]:
     """Both phases on an engine with `randomize_parameters(0)` weights (the
-    graph `model_cfg`, by default the shipped one, at image size `size`)."""
+    graph `model_cfg`, by default the shipped one, at image size `size`);
+    with dp > 1 on every process of a group of dp (None on all but rank 0)."""
     dev = torch.device(device)
     cfgs = {"load_ckpt_path": None, "bf16": dev.type == "cuda", "H": size, "seq_len": 12,
             "steps": steps, "scale": [cfg_scale, 0.0], "noise_iters": noise_iters}
-    predict = serve.build_predict_fn(cfgs, TEXTDESIGN_SD_2 if model_cfg is None else model_cfg,
-                                     dev, seed=0, noise_search_batched=noise_search_batched)
+    graph = TEXTDESIGN_SD_2 if model_cfg is None else model_cfg
+    if dp > 1:
+        predict = serve.data_parallel_predict_fn(cfgs, graph, dev, dp, seed=0,
+                                                 noise_search_batched=noise_search_batched)
+        if dist.rank_and_world()[0] != 0:
+            predict.serve()
+            return None
+        dev = predict.device
+    else:
+        predict = serve.build_predict_fn(cfgs, graph, dev, seed=0,
+                                         noise_search_batched=noise_search_batched)
     timeline: Dict[int, List[Optional[float]]] = {}
 
     def timed(arr_batch, key):
@@ -116,7 +132,7 @@ def run(max_batch: int = 8, steps: int = 50, noise_iters: int = 10, batches: int
     def make(delay_ms: float) -> InpaintService:
         # the services share one predictor; only the coalescing deadline differs
         return InpaintService(timed, max_batch=max_batch, max_delay_ms=delay_ms, size=size,
-                              batch_buckets=buckets, pipeline_depth=pipeline)
+                              batch_buckets=buckets, pipeline_depth=pipeline, dp=dp)
 
     def submit(svc: InpaintService, req: InpaintRequest):
         fut = svc.submit(req)
@@ -161,6 +177,8 @@ def run(max_batch: int = 8, steps: int = 50, noise_iters: int = 10, batches: int
             time.sleep(max(0.0, period - (time.perf_counter() - t0)))
     stats = service.stats()
     service.shutdown()
+    if dp > 1:
+        predict.stop()
 
     record = {
         "metric": metric_name(dev, size, steps),
@@ -181,6 +199,7 @@ def run(max_batch: int = 8, steps: int = 50, noise_iters: int = 10, batches: int
         "buckets": list(service.batch_buckets),
         "noise_search_batched": bool(noise_search_batched),
         "pipeline_depth": pipeline,
+        "dp": dp,
         "compile_s": warmup_s,  # the warmup groups (nothing is compiled ahead on the card)
         "overlap": _overlap(timeline, sat_keys),
         "batcher_stats": stats,
@@ -206,6 +225,8 @@ def main(argv=None) -> None:
     p.add_argument("--saturated-delay-ms", type=float, default=2000.0,
                    help="coalescing deadline of the saturated phase only")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--dp", type=int, default=1,
+                   help="data-parallel degree, under torchrun --nproc_per_node equal to it")
     args = p.parse_args(argv)
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise SystemExit("serve_bench: no CUDA device found; --device cpu runs on the CPU")
@@ -214,8 +235,9 @@ def main(argv=None) -> None:
                 max_delay_ms=args.max_delay_ms, buckets=args.buckets,
                 noise_search_batched=args.noise_search_batched, pipeline=args.pipeline,
                 saturated_delay_ms=args.saturated_delay_ms, cfg_scale=args.scale,
-                device=args.device)
-    print(json.dumps(bench.record))
+                device=args.device, dp=args.dp)
+    if bench is not None:
+        print(json.dumps(bench.record))
 
 
 if __name__ == "__main__":

@@ -40,6 +40,20 @@ draws the whole batch's noise from a generator seeded by
 ``batch_seed(seed, batch_key)``, so a request's output is a function of
 (weights, batch contents, batch_key, row, batch_size), and replaying those
 reproduces the image bit for bit.
+
+Data parallelism over cards (``--dp N``, one process per card): the group's
+first process runs the service as above with a ``DataParallelPredictor`` as
+its predictor; every other process runs ``DataParallelPredictor.serve``. For
+each group the first process broadcasts a header (op, batch_key, bucket)
+and the group's uint8 rows; then every process runs the same predictor call
+(``predict.Predictor`` with the data group: each samples its rows of the
+padded bucket with the generator of ``batch_seed(seed, batch_key)``), and
+the images come back whole. ``shutdown`` broadcasts a stop header after the
+last group, which ends the other processes' loops. While no group comes,
+a keep-alive header goes out every ``KEEPALIVE_S``, so that a waiting
+process stays within the process group's timeout. Only ``broadcast`` and
+``all_reduce`` are used: they run on NCCL across cards, on gloo on the CPU
+and on gloo for processes that share a card.
 """
 
 from __future__ import annotations
@@ -55,7 +69,10 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
 from .charset import encode_label
+from .parallel.dist import group_src
 
 
 def batch_seed(seed: int, key: int) -> int:
@@ -522,3 +539,150 @@ class InpaintService:
 
     def shutdown(self) -> None:
         self.batcher.shutdown()
+
+
+# -- data parallelism over a process group ------------------------------------
+
+OP_STOP, OP_RUN, OP_KEEPALIVE = 0, 1, 2
+# an idle group's first process sends a keep-alive header this often: well
+# inside the process group's timeout (`parallel.dist.TIMEOUT_S`)
+KEEPALIVE_S = 60.0
+
+
+def row_layout(size: int, seq_len: int):
+    """(key, dtype, shape of one row) of the service's uint8 wire rows, in
+    the order they are packed (`InpaintService.build_row`)."""
+    return (("image", np.uint8, (size, size, 3)), ("mask", np.uint8, (size, size, 1)),
+            ("seg_mask", np.float32, (seq_len,)), ("label_ids", np.int32, (seq_len,)))
+
+
+class DataParallelPredictor:
+    """The service's predictor over a data group: on the group's first
+    process it is the `InpaintService`'s predictor, on the others `serve`
+    is their loop.
+
+    ``run(arr_batch, key)``, the same callable on every process (e.g.
+    `scripts/serve.build_predict_fn` with the data group), samples the
+    global batch together with the other processes and returns its images.
+    A call broadcasts the header (op, key, bucket) and the rows packed into
+    one uint8 buffer, then calls ``run``; calls are serialized by a lock, so
+    the broadcasts of two threads (a warmup and the dispatcher) cannot
+    interleave.
+
+    A call that raises on one process may leave it midway through ``run``'s
+    collectives while the others wait in another: the group is out of step
+    and serves nothing more. The first process sets ``broken`` and refuses
+    later calls (`scripts/serve.py` then stops its server and exits non-zero);
+    another process's `serve` raises. Either way the process ends, a rank
+    still waiting in a collective fails when the process group times out or
+    its peer's connection closes, and torchrun ends the job."""
+
+    def __init__(self, run: Callable[[Dict[str, Any], int], Any], group: Any,
+                 device: torch.device | str, size: int, seq_len: int):
+        self.run, self.group = run, group
+        self.device = torch.device(device)
+        self.layout = row_layout(size, seq_len)
+        self.row_bytes = sum(int(np.dtype(dt).itemsize * np.prod(shape))
+                             for _, dt, shape in self.layout)
+        self.src = group_src(group)
+        self.groups = 0  # groups this process has run
+        self._lock = threading.Lock()
+        self._last = time.monotonic()
+        self._stopped = threading.Event()
+        self.broken = threading.Event()  # a call raised: the group is out of step
+        self._keepalive: Optional[threading.Thread] = None
+
+    def _send(self, op: int, key: int = 0, bucket: int = 0) -> None:
+        """Broadcast a header; nothing here waits for the device."""
+        h = torch.tensor([op, key, bucket], dtype=torch.int64, device=self.device)
+        dist.broadcast(h, src=self.src, group=self.group)
+        self._last = time.monotonic()
+
+    def _receive(self) -> List[int]:
+        h = torch.empty(3, dtype=torch.int64, device=self.device)
+        dist.broadcast(h, src=self.src, group=self.group)
+        return h.tolist()
+
+    def _pack(self, arr_batch: Dict[str, np.ndarray]) -> torch.Tensor:
+        parts = []
+        bucket = len(arr_batch["image"])
+        for k, dt, shape in self.layout:
+            a = np.ascontiguousarray(arr_batch[k], dtype=dt)
+            if a.shape != (bucket,) + shape:
+                raise ValueError(f"row field {k}: {a.shape}, expected {(bucket,) + shape}")
+            parts.append(a.reshape(bucket, -1).view(np.uint8))
+        return torch.from_numpy(np.concatenate(parts, axis=1)).to(self.device)
+
+    def _unpack(self, buf: torch.Tensor, bucket: int) -> Dict[str, torch.Tensor]:
+        rows, out, off = buf.reshape(bucket, self.row_bytes), {}, 0
+        for k, dt, shape in self.layout:
+            n = int(np.dtype(dt).itemsize * np.prod(shape))
+            t = rows[:, off:off + n].contiguous().view(getattr(torch, np.dtype(dt).name))
+            out[k] = t.reshape((bucket,) + shape)
+            off += n
+        return out
+
+    def __call__(self, arr_batch: Dict[str, np.ndarray], key: int):
+        bucket = len(arr_batch["image"])
+        with self._lock:
+            if self._stopped.is_set():
+                raise RuntimeError("the data-parallel group has been "
+                                   + ("broken by a failed group" if self.broken.is_set()
+                                      else "stopped"))
+            if self._keepalive is None:
+                self._keepalive = threading.Thread(target=self._keepalive_loop,
+                                                   name="dp-keepalive", daemon=True)
+                self._keepalive.start()
+            buf = self._pack(arr_batch)  # a bad batch fails before any collective
+            try:
+                self._send(OP_RUN, key, bucket)
+                dist.broadcast(buf, src=self.src, group=self.group)
+                self.groups += 1
+                return self.run(arr_batch, key)
+            except BaseException:
+                self.broken.set()
+                self._stopped.set()  # no stop header: the others may be in a collective
+                raise
+
+    def _keepalive_loop(self) -> None:
+        while not self._stopped.wait(KEEPALIVE_S / 2):
+            with self._lock:
+                if not self._stopped.is_set() and time.monotonic() - self._last >= KEEPALIVE_S / 2:
+                    self._send(OP_KEEPALIVE)
+
+    def stop(self) -> None:
+        """End the other processes' loops (after every group sent)."""
+        with self._lock:
+            if not self._stopped.is_set():
+                self._stopped.set()
+                self._send(OP_STOP)
+
+    def serve(self) -> int:
+        """The loop of a process other than the group's first: run each
+        group the first process broadcasts, until its stop header. Returns
+        the groups run; a group whose call raises ends the loop with its
+        error, as the group is out of step (see the class)."""
+        while True:
+            op, key, bucket = self._receive()
+            if op == OP_STOP:
+                return self.groups
+            if op == OP_KEEPALIVE:
+                continue
+            buf = torch.empty(bucket * self.row_bytes, dtype=torch.uint8, device=self.device)
+            dist.broadcast(buf, src=self.src, group=self.group)
+            self.groups += 1
+            try:
+                self.run(self._unpack(buf, bucket), key)
+            except BaseException as e:
+                print(f"data-parallel worker: group {key} failed, leaving the group: {e!r}",
+                      flush=True)
+                raise
+
+
+class DataParallelService(InpaintService):
+    """An `InpaintService` over a `DataParallelPredictor` whose shutdown
+    also stops the group's other processes."""
+
+    def shutdown(self) -> None:
+        super().shutdown()
+        self.predictor.stop()
