@@ -296,7 +296,24 @@ matplotlib, imageio or safetensors). Phases, each printed on its own line:
    ranks, a shard then gather of the state dict bit-equal,
    `tp_report` listing the ten ds1 attention modules, and 10 flash forward,
    9 flash backward and 15 GEGLU launches on each rank. A failure in a rank
-   fails the phase; the ranks are killed on the way out.
+   fails the phase; the ranks are killed on the way out;
+22. the stage and floor probes (udifftext_tpu_torch/scripts: profile_components,
+   profile_transformer, kv_hoist_probe, step_floor_probe, train_probe,
+   pipeline_probe, perf_probe, test_parity_probe, geglu_sweep) through their
+   entry functions at full width (the shipped graph with seeded weights, the
+   JAX scripts' shapes and step counts) at 1 sample (2 UNet rows) and one
+   timed call after a warm-up, each printing its table under the card's
+   name and power limit: every label present with a finite positive time;
+   inline and hoisted K/V bit-equal; every swept GEGLU plan within the
+   bf16 tolerance of the plain version; the whole `engine.sample`
+   bit-equal to its stages composed; the
+   pipeline's operation count equal to 50 evals' plus the K/V hoist's and
+   the decode's; launches as the UNet's plan and the shape gates predict
+   (one UNet eval 10 flash and 15 GEGLU; a backward with every gradient 10
+   flash backward, with the trainable ones 9; the sweep's direct launches
+   of the GEGLU entry, a check and the timed calls a plan, on their own
+   path `probes_sweep_entry`); within 120 s, the phase's seconds on a
+   `[phases]` line.
 
 Beside every kernel's time stand its plain version's, its bound (the least
 time the card could take: the larger of bytes moved once over 3.35 TB/s and
@@ -309,7 +326,8 @@ Each path (demo, AAE, training, OCR-loss training, glue probe, ResBlock
 probe, variants probe, serving, eval CLI, train CLI, encoder propagation at
 interval 2, the other samplers, pretraining, the metrics, the options demo,
 the options fine-tuning, the VAE GAN steps, the STR hub, the STR trainer
-and the STR tools, dp serving, the tensor-parallel step) runs with the
+and the STR tools, dp serving, the tensor-parallel step, the probes of phase
+22 and the GEGLU sweep's direct launches) runs with the
 launch counts set to 0 just before it and read just after (phases 20 and 21
 count in each rank; their `dp_serve` and `tp_train` entries are rank 0's).
 Any failure exits non-zero. The
@@ -401,25 +419,6 @@ def grad_tol(ref) -> float:
 # over the same rows, row groups a block (C = 64·NT·G)
 GEGLU_MMA_SHAPES = ([(nt, 1, rg) for rg in (1, 2) for nt in (1, 2, 3, 4, 5)]
                     + [(nt, g_, 1) for g_ in (2, 4) for nt in (3, 4, 5)])
-HBM_BYTES_PER_S = 3.35e12                          # H100 SXM
-PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}       # dense tensor cores; fp32 FMAs
-
-
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def bound_ms(flops: float, moved: int, dtype) -> tuple:
-    """(ms, "bytes" | "operations"): the least time the card could take for
-    `flops` operations of `dtype` and `moved` bytes (each input read once,
-    each output written once)."""
-    import torch
-
-    ops = flops / PEAK_FLOPS["bf16" if dtype == torch.bfloat16 else "fp32"] * 1e3
-    mem = moved / HBM_BYTES_PER_S * 1e3
-    return (ops, "operations") if ops >= mem else (mem, "bytes")
-
-
 def record(records: dict, key: str, label: str, err: float, ms: float, plain_ms: float,
            bound: tuple, library_ms=None) -> str:
     """Keep the first case of each kernel for the JSON line; returns the
@@ -471,18 +470,18 @@ KERNEL_GROUPS = (
 
 
 def profile_groups(label: str, fn, path_s: float) -> None:
-    """One call of `fn` under torch.profiler (device activity only): logs the
-    device time, its share of `path_s` (the seconds the same call took
-    without the profiler, which slows the host several times over) and the
-    device milliseconds and launches of each kernel group."""
+    """One call of `fn` in a `utils.profiling.trace` window (device activity
+    only): logs the device time, its share of `path_s` (the seconds the same
+    call took without the profiler, which slows the host several times
+    over) and the device milliseconds and launches of each kernel group."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+
+    from udifftext_tpu_torch.utils.profiling import trace
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with trace(None, host=False) as prof:  # the trace stays in memory
         fn()
-        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     groups = {}
     for ev in prof.key_averages():
@@ -1814,6 +1813,131 @@ def multicard_phases(dev, card: str, kernel_fns, expected, by_path) -> float:
     return time.perf_counter() - t_phase
 
 
+PROBE_LIMIT_S = 120  # phase 22's time limit
+
+
+def probes_phase(dev, card: str, kernel_fns, expected, by_path) -> float:
+    """Phase 22: the nine stage and floor probes of udifftext_tpu_torch/scripts
+    through their entry functions at full width (the shipped graph, the JAX
+    scripts' shapes and step counts; 1 sample, or 2 UNet rows, and one timed
+    call after a warm-up), each module released before the next. It fails on
+    a missing label, a time that is not finite and positive, inline and
+    hoisted K/V outputs that are not bit-equal (the same products on the same
+    operands in the same order), a GEGLU plan that disagrees with the plain
+    version, a whole `engine.sample` whose image is not bit-equal to the
+    composed stages', a pipeline count that is not the steps' plus the K/V
+    hoist's plus the decode's, or launch counts other than the UNet's plan,
+    the wrappers' shape gates and the sweep's plans predict. The sweep calls
+    the GEGLU entry directly for each plan; those launches are its own path,
+    `probes_sweep_entry`, beside `probes`. Returns its seconds."""
+    import gc
+    import math
+
+    import torch
+
+    from udifftext_tpu_torch.builders import TEXTDESIGN_SD_2, build_engine
+    from udifftext_tpu_torch.models.attention import geglu_shape_ok
+    from udifftext_tpu_torch.ops.attention import flash_shape_ok
+    from udifftext_tpu_torch.ops.geglu import geglu_plan
+    from udifftext_tpu_torch.scripts import (geglu_sweep, kv_hoist_probe, perf_probe,
+                                             pipeline_probe, profile_components,
+                                             profile_transformer, step_floor_probe,
+                                             test_parity_probe, train_probe)
+
+    t_phase = time.perf_counter()
+    unet = build_engine(TEXTDESIGN_SD_2, torch.bfloat16, "meta").engine.unet  # the plan only
+    (ef, eg), (df, dg) = plan_launches(unet, 64)
+    fl, ge = ef + df, eg + dg  # one UNet eval: 10 flash, 15 GEGLU
+    layers = step_floor_probe.layer_list(unet, 64)
+    depth = unet.transformer_depth
+    lay_fl = sum(depth * flash_shape_ok(x.side**2, x.side**2, x.dim_head) for x in layers)
+    lay_ge = sum(depth * geglu_shape_ok(x.side**2) for x in layers)
+    reps, runs = 1, 1
+    calls = 1 + reps * runs  # per timed label: a warm-up, then the timed calls
+    steps, cands = pipeline_probe.STEPS, test_parity_probe.TEST_RUN["noise_iters"]
+    sample_evals = 2 * cands + steps  # the sequential search's rollouts, then the steps
+    kw = dict(reps=reps, runs=runs, device=str(dev))
+    m_sweep = 32 * 4096
+    sweep = [geglu_sweep.plan_label(p, geglu_plan(torch.bfloat16, m_sweep, 320, 1280,
+                                                  torch.cuda.get_device_properties(dev)
+                                                  .multi_processor_count))
+             for p in geglu_sweep.mma_plans(m_sweep, 320, 1280)]
+    # name, call, labels, launches; the flash backward with every gradient
+    # reaches each of the `fl` self-attentions, with the trainable ones all
+    # but the first (its q/k/v sit upstream of every t_attn): PERF.md §6, the probes
+    probes = (
+        ("profile_components", lambda: profile_components.run(batch=2, **kw),
+         profile_components.labels(), expected(flash_attention=(2 * fl + 3) * calls,
+                                               geglu_ff=2 * ge * calls)),
+        ("profile_transformer", lambda: profile_transformer.run(batch=1, **kw),
+         profile_transformer.LABELS, expected(flash_attention=3 * calls, geglu_ff=2 * calls)),
+        ("kv_hoist_probe", lambda: kv_hoist_probe.run(batch=1, **kw),
+         kv_hoist_probe.LABELS + kv_hoist_probe.DIFF_LABELS,
+         expected(flash_attention=fl * (2 * calls + 2), geglu_ff=ge * (2 * calls + 2))),
+        ("step_floor_probe", lambda: step_floor_probe.run(batch=1, **kw),
+         tuple(step_floor_probe.layer_label(x) for x in layers)
+         + (step_floor_probe.STEP, step_floor_probe.REST, step_floor_probe.DECODE),
+         expected(flash_attention=(lay_fl + fl) * calls, geglu_ff=(lay_ge + ge) * calls)),
+        ("train_probe", lambda: train_probe.run(batch=1, **kw), train_probe.LABELS,
+         expected(flash_attention=4 * fl * calls, geglu_ff=4 * ge * calls,
+                  flash_attention_bwd=(fl + fl - 1) * calls)),
+        ("pipeline_probe", lambda: pipeline_probe.run(batch=1, **kw), pipeline_probe.LABELS,
+         expected(flash_attention=3 * steps * fl * calls, geglu_ff=3 * steps * ge * calls)),
+        ("perf_probe", lambda: perf_probe.run(batch=1, **kw),
+         perf_probe.labels() + (perf_probe.COUNT_GAP,),
+         expected(flash_attention=(fl + 3) * calls + steps * fl * (1 + runs),
+                  geglu_ff=ge * calls + steps * ge * (1 + runs))),
+        ("test_parity_probe", lambda: test_parity_probe.run(batch=1, **kw),
+         test_parity_probe.LABELS + (test_parity_probe.DIFF_LABEL,),
+         expected(flash_attention=fl * ((steps + 2 * cands + sample_evals) * calls
+                                        + 2 * sample_evals),
+                  geglu_ff=ge * ((steps + 2 * cands + sample_evals) * calls
+                                 + 2 * sample_evals))),
+        ("geglu_sweep", lambda: geglu_sweep.run(**kw),
+         tuple(sweep) + (geglu_sweep.WRAPPER, geglu_sweep.COMPOSITION, geglu_sweep.PRODUCTS),
+         expected(geglu_ff=calls)),
+    )
+    checks = {  # the labels that hold no time, and the bound each must keep
+        kv_hoist_probe.DIFF_LABELS[0]: 0.0, kv_hoist_probe.DIFF_LABELS[1]: 0.0,
+        test_parity_probe.DIFF_LABEL: 0.0, perf_probe.COUNT_GAP: 0.0,
+    }
+    total = dict.fromkeys(counts(*kernel_fns), 0)
+    geglu_sweep.launch.launches = 0
+    for name, call, labels, want in probes:
+        t0 = time.perf_counter()
+        reset(*kernel_fns)
+        got = call()
+        torch.cuda.synchronize()
+        launches = counts(*kernel_fns)
+        total = {k: total[k] + n for k, n in launches.items()}
+        log(f"[probes] {name}: {len(got)} labels in {time.perf_counter() - t0:.1f} s "
+            f"({card}); launches {launches}")
+        if set(got) != set(labels):
+            fail(f"probe {name}: labels {sorted(set(labels) ^ set(got))} missing or extra")
+        for label, v in got.items():
+            if label in checks:
+                if not abs(v) <= checks[label]:
+                    fail(f"probe {name}: {label} = {v} (bound {checks[label]})")
+            elif label == step_floor_probe.REST:
+                if not math.isfinite(v):
+                    fail(f"probe {name}: {label} = {v}")
+            elif not (math.isfinite(v) and v > 0):
+                fail(f"probe {name}: {label} took {v} ms (a failed GEGLU plan reads NaN)")
+        if launches != want:
+            fail(f"probe {name}: launches {launches}, expected {want}")
+        del got
+        gc.collect()
+        torch.cuda.empty_cache()
+    by_path["probes"] = total
+    direct = geglu_sweep.launch.launches
+    log(f"[probes] geglu_sweep: {direct} launches of the GEGLU entry with an explicit plan "
+        f"(path probes_sweep_entry), expected {len(sweep)} plans x {1 + calls}")
+    if direct != len(sweep) * (1 + calls):  # each plan's check, then its timed label
+        fail(f"probe geglu_sweep: {direct} direct launches, expected {len(sweep) * (1 + calls)}")
+    by_path["probes_sweep_entry"] = {**dict.fromkeys(total, 0), "geglu_ff": direct}
+    return time.perf_counter() - t_phase
+
+
 def main() -> None:
     import torch
 
@@ -1885,6 +2009,7 @@ def main() -> None:
     from udifftext_tpu_torch.predict import Predictor
     from udifftext_tpu_torch.scripts import flash_variants as variants_probe
     from udifftext_tpu_torch.scripts import glue_fusion_probe, resblock_probe, serve_bench
+    from udifftext_tpu_torch.scripts._timing import bound_ms, card_line, nbytes
     from udifftext_tpu_torch.scripts.ocr_train_probe import ocr_train_graph
     from udifftext_tpu_torch.serving import InpaintService
     from udifftext_tpu_torch.train import to_device, train
@@ -1899,11 +2024,7 @@ def main() -> None:
     torch.cuda.set_device(dev)
 
     # 1. the card
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60)
-    if smi.returncode != 0:
-        fail(f"nvidia-smi failed: {smi.stderr}")
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_line(dev)
     log(card)
     log(f"[torch] {torch.__version__} cuda {torch.version.cuda} "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
@@ -3739,6 +3860,12 @@ def main() -> None:
     # step, each on two ranks against one process
     multi_s = multicard_phases(dev, card, kernel_fns, expected, by_path)
     log(f"[phases] 20-21 (dp serving, tensor-parallel step) {multi_s:.1f} s")
+
+    # 22. the stage and floor probes
+    probes_s = probes_phase(dev, card, kernel_fns, expected, by_path)
+    log(f"[phases] 22 (probes) {probes_s:.1f} s")
+    if probes_s > PROBE_LIMIT_S:
+        fail(f"phase 22 took {probes_s:.1f} s (limit {PROBE_LIMIT_S})")
 
     kernels = []
     for name, src, replaces, key, path in (

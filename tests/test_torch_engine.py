@@ -215,6 +215,9 @@ from udifftext_tpu_torch.utils import ckpt
 from udifftext_tpu_torch.parallel import train as parallel_train
 from udifftext_tpu_torch.ops import flash_variants as fv_ops, groupnorm as gn_ops
 from udifftext_tpu_torch.scripts import flash_variants, glue_fusion_probe, resblock_probe
+from udifftext_tpu_torch.scripts import (geglu_sweep, kv_hoist_probe, perf_probe, pipeline_probe,
+                                         profile_components, profile_transformer,
+                                         step_floor_probe, test_parity_probe, train_probe)
 from udifftext_tpu_torch.utils import convert, logger, png, profiling, train_ckpt, viz
 from udifftext_tpu_torch import test as eval_cli, util
 from udifftext_tpu_torch.parallel import dist
@@ -347,7 +350,8 @@ assert res.swa_n == 1 and all(np.isfinite(res.losses))
 reader = ParseqPredictor(str_hub.create_model("parseq", device="cpu", **str_parseq))
 assert str_test.evaluate_set(reader, items, 2, 90, "abc1").num_samples == 2
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "udifftext_tpu", "scripts")
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "udifftext_tpu", "scripts",
+                                    "bench")
              or m.startswith("str_"))
 print(json.dumps(bad))
 """
@@ -357,12 +361,12 @@ def test_port_never_imports_jax(tmp_path):
     """Sampling (plain, AAE and encoder propagation), the encprop quality
     script, one training step, the train and eval CLIs' entry functions, a
     LabelEncoder pretraining step, the FID of the eval CLI's files, the
-    three probes, the demo CLI, a checkpoint load, the serving benchmark, a
+    three probes (and the nine stage probes' imports), the demo CLI, a checkpoint load, the serving benchmark, a
     step of each VAE GAN optimizer, every STR hub model, PARSeq's permuted
     loss, the STR metrics, a config instantiation, an LMDB read through
     open_lmdb, two STR trainer steps with SWA and str_test's evaluate_set in
-    a fresh process leave jax, flax, optax, the JAX package and the root
-    `scripts` package out of sys.modules."""
+    a fresh process leave jax, flax, optax, the JAX package, the root
+    `scripts` package and the JAX benchmark `bench` out of sys.modules."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(REPO)
     res = subprocess.run(
@@ -376,10 +380,11 @@ def test_port_never_imports_jax(tmp_path):
 def test_port_sources_name_no_jax_package():
     """No source of the port, nor the GPU smoke script, imports jax, flax,
     optax, the JAX package `udifftext_tpu` (the port's own package name starts with
-    it, so the match ends at a word boundary), the root `scripts` package or a
-    root script by its bare name (`from str_test import`, as the JAX STR tools do)."""
+    it, so the match ends at a word boundary), the root `scripts` package, the
+    JAX benchmark `bench` (whose helpers the JAX probes import) or a root
+    script by its bare name (`from str_test import`, as the JAX STR tools do)."""
     pat = re.compile(r"^\s*(?:import|from)\s+(?:udifftext_tpu|jax|jaxlib|flax|optax|scripts|"
-                     r"str_\w+)\b(?!_)", re.M)
+                     r"bench|str_\w+)\b(?!_)", re.M)
     files = sorted((REPO / "udifftext_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 30
     hits = [f"{f.relative_to(REPO)}: {m.group(0).strip()}"
@@ -387,7 +392,7 @@ def test_port_sources_name_no_jax_package():
     assert hits == []
     assert pat.search("from udifftext_tpu.config import load_config")
     assert pat.search("    import jax.numpy as jnp") and pat.search("import udifftext_tpu")
-    assert pat.search("import optax")
+    assert pat.search("import optax") and pat.search("from bench import _zeros_params")
     assert pat.search("from scripts.str_test import load_folder")
     assert pat.search("    from str_test import TEST_BENCHMARK") and pat.search("import scripts")
     assert not pat.search("from udifftext_tpu_torch.config import load_config")
