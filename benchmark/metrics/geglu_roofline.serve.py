@@ -1,0 +1,25 @@
+"""The GEGLU feed-forward kernel's share of its H100 roofline in the traced
+groups: the least time of the feed-forwards that take the kernel (tokens a
+multiple of 128), on the CFG-doubled rows of every UNet eval, over the
+device time of the kernels named geglu."""
+
+from benchmark import flops
+
+PATTERNS = ("geglu",)
+
+
+def read(r):
+    if r.trace is None:
+        return None
+    seconds = r.trace.device_seconds(PATTERNS)
+    if seconds <= 0:
+        return None
+    cfg = r.cell.config
+    net = cfg["graph"]["network_config"]["params"]
+    lat = cfg["image_size"] // 8
+    rows = 2 * max(cfg["serving"]["buckets"])
+    evals = r.traced_units * (2 * cfg["sampler"]["noise_iters"] + cfg["sampler"]["num_steps"])
+    work = [flops.geglu_work(rows * n, c) for n, c, _ in flops.attn_layers(net, lat, lat)
+            if n % 128 == 0]
+    least = flops.least_seconds(evals * sum(w[0] for w in work), evals * sum(w[1] for w in work))
+    return 100.0 * least / seconds
