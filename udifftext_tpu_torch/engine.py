@@ -21,6 +21,12 @@ unguided UNet before each step; with `detailed`, the middle step's t_attn
 maps are returned. `log_images` is a training run's image log: inputs, VAE
 reconstructions and fresh samples.
 
+Spans and counters (`utils.profiling`): `sample` records
+`sample.condition` (the LabelEncoder, the mask rescale, the masked image's
+encode), `sample.search` (the init-noise search), `sample.loop` (the
+sampling steps) and `sample.decode`; every call of `network`'s UNet
+closure adds one to the counter `unet.evals` (a CFG eval is one call).
+
 Noise is injectable: every random draw of `loss` and `sample` may be given
 explicitly; otherwise it is drawn from `generator` in the order each method
 documents. This is how the port is held to the JAX engine, whose threefry
@@ -59,6 +65,7 @@ from .models.parseq import PARSeq
 from .models.unet import UNetModel
 from .models.vae import AutoencoderKL, DiagonalGaussian
 from .ocr import ParseqPredictor
+from .utils import profiling
 
 Batch = Dict[str, torch.Tensor]
 
@@ -222,6 +229,7 @@ class DiffusionEngine(nn.Module):
         that the losses' head mean is the whole layer's."""
 
         def net(x: torch.Tensor, c_noise: torch.Tensor, cond: Dict[str, Any]):
+            profiling.count("unet.evals")
             if "concat" in cond:
                 x = torch.cat([x, cond["concat"].to(x.dtype)], dim=-1)
             tc, vc, y = cond.get("t_crossattn"), cond.get("v_crossattn"), cond.get("vector")
@@ -470,33 +478,40 @@ class DiffusionEngine(nn.Module):
             raise ValueError(f"noise must be {(max(noise_iters, 1),) + shape}, "
                              f"got {tuple(noise.shape)}")
 
-        c, uc = self.conditionings(batch, posterior_eps)
+        with profiling.span("sample.condition"):
+            c, uc = self.conditionings(batch, posterior_eps)
         aux: Dict[str, torch.Tensor] = {}
         if noise_iters > 0:
-            x0, aux["noise_scores"] = self.get_init_noise(
-                c, uc, batch, noise, cfg_scale, candidate_batched=noise_search_batched,
-                data_group=data_group)
+            with profiling.span("sample.search"):
+                x0, aux["noise_scores"] = self.get_init_noise(
+                    c, uc, batch, noise, cfg_scale, candidate_batched=noise_search_batched,
+                    data_group=data_group)
         else:
             x0 = noise[0]
-        sigmas = torch.as_tensor(self.discretization(num_steps, do_append_zero=True), device=dev)
-        x = SP.init_latent(x0, sigmas)
-        if aae_enabled or detailed:
-            z, maps, per_step = self._sample_guided(c, uc, batch, x, sigmas, cfg_scale,
-                                                    aae_enabled, detailed, data_group)
-            aux.update(maps)
-            if per_step is not None:
-                inters = torch.cat([self.decode_first_stage(f[None]) for f in per_step["inter"]])
-                aux["inters"] = torch.clamp((inters + 1.0) / 2.0, 0.0, 1.0)
-                aux["local_losses"] = per_step["local_loss"]
-        elif encprop_interval > 1:
-            z = SP.sample_euler_edm_encprop(*self.make_denoise_fns_encprop(c, uc, cfg_scale), x,
-                                            sigmas, SP.uniform_key_mask(num_steps, encprop_interval))
-        else:
-            z = SP.sample_euler_edm(self.make_denoise_fn(c, uc, cfg_scale), x, sigmas)
+        with profiling.span("sample.loop"):
+            sigmas = torch.as_tensor(self.discretization(num_steps, do_append_zero=True),
+                                     device=dev)
+            x = SP.init_latent(x0, sigmas)
+            if aae_enabled or detailed:
+                z, maps, per_step = self._sample_guided(c, uc, batch, x, sigmas, cfg_scale,
+                                                        aae_enabled, detailed, data_group)
+                aux.update(maps)
+                if per_step is not None:
+                    inters = torch.cat([self.decode_first_stage(f[None])
+                                        for f in per_step["inter"]])
+                    aux["inters"] = torch.clamp((inters + 1.0) / 2.0, 0.0, 1.0)
+                    aux["local_losses"] = per_step["local_loss"]
+            elif encprop_interval > 1:
+                z = SP.sample_euler_edm_encprop(*self.make_denoise_fns_encprop(c, uc, cfg_scale),
+                                                x, sigmas,
+                                                SP.uniform_key_mask(num_steps, encprop_interval))
+            else:
+                z = SP.sample_euler_edm(self.make_denoise_fn(c, uc, cfg_scale), x, sigmas)
         if return_latents:
             return z, aux
-        img = self.decode_first_stage(z)
-        return torch.clamp((img + 1.0) / 2.0, 0.0, 1.0), aux
+        with profiling.span("sample.decode"):
+            img = self.decode_first_stage(z)
+            return torch.clamp((img + 1.0) / 2.0, 0.0, 1.0), aux
 
     def sample_draws(self, shape: Tuple[int, ...], generator: Optional[torch.Generator],
                      noise_iters: int, posterior_eps: Optional[torch.Tensor] = None,

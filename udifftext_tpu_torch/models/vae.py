@@ -17,6 +17,7 @@ from torch import nn
 
 from ..ops import sdpa
 from ..ops.attention import IMPLS as ATTN_IMPLS
+from ..utils import profiling
 from .layers import Conv1x1, Conv3x3, GroupNorm32, upsample_nearest_2x
 
 
@@ -215,7 +216,9 @@ class Decoder(nn.Module):
 
 
 class AutoencoderKL(nn.Module):
-    """encode → DiagonalGaussian parameters; decode; quant convs included."""
+    """encode → DiagonalGaussian parameters; decode; quant convs included.
+    Each encode and decode is a span (`vae.encode`, `vae.decode`,
+    `utils.profiling`)."""
 
     def __init__(self, cfg: DDConfig = DDConfig(), embed_dim: int = 4,
                  dtype: torch.dtype = torch.float32, attn_impl: str = "auto"):
@@ -229,7 +232,9 @@ class AutoencoderKL(nn.Module):
         self.post_quant_conv = Conv1x1(embed_dim, cfg.z_channels)
 
     def encode_moments(self, x: torch.Tensor) -> torch.Tensor:
-        return self.quant_conv(self.encoder(x.to(self.dtype)))
+        with profiling.span("vae.encode"):
+            return self.quant_conv(self.encoder(x.to(self.dtype)))
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
-        return self.decoder(self.post_quant_conv(z.to(self.dtype)))
+        with profiling.span("vae.decode"):
+            return self.decoder(self.post_quant_conv(z.to(self.dtype)))

@@ -24,6 +24,10 @@
     parameter are its shard's. The train CLI builds no tensor groups, as the
     JAX `train.py` builds a data-only mesh: tensor parallelism is reached
     through this API, as the JAX `make_train_step(state_sharding_tree=...)`.
+  - Spans (`utils.profiling`): `train.step` (key: the optimizer-step
+    count) holding `loss.forward` and `loss.backward` for each micro-batch
+    and `train.optimizer` (the mean over micro-batches, the all-reduce
+    under a process group, AdamW and the EMA).
   - EMA of the trainable parameters (LitEma warm-up decay), updated in
     place after each update. The JAX build keeps an EMA of every parameter;
     a frozen one's EMA is the parameter itself, so the port stores none.
@@ -50,6 +54,7 @@ import torch
 from torch import nn
 
 from ..models.layers import name_has_key
+from ..utils import profiling
 from . import dist
 
 LossFn = Callable[[Any], Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
@@ -248,33 +253,37 @@ def train_step(state: TrainState, micro_batches: Sequence[Any], loss_fn: LossFn,
     Returns the loss and each aux component averaged likewise (detached, on
     the device: without a process group nothing here waits for the
     device)."""
-    state.optimizer.zero_grad(set_to_none=True)
-    loss_sum = None
-    aux_sum: Dict[str, torch.Tensor] = {}
-    for mb in micro_batches:
-        loss, aux = loss_fn(mb)
-        loss.backward()
-        loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
-        for k, v in aux.items():
-            aux_sum[k] = v.detach() if k not in aux_sum else aux_sum[k] + v.detach()
-    n = len(micro_batches)
-    for p in state.params.values():
-        if p.grad is not None:
-            p.grad.div_(n)
-    if dist.is_distributed():
-        for p in state.params.values():  # every process reduces the same buffers
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        dist.all_reduce_mean_([p.grad for p in state.params.values()], group=data_group)
-        logged = torch.stack([loss_sum] + [aux_sum[k] for k in sorted(aux_sum)]).float()
-        dist.all_reduce_mean_([logged], group=data_group)
-        loss_sum = logged[0]
-        aux_sum = {k: logged[i + 1] for i, k in enumerate(sorted(aux_sum))}
-    lr = state.schedule(state.step)
-    for group in state.optimizer.param_groups:
-        group["lr"] = lr
-    state.optimizer.step()
-    if state.ema is not None:
-        ema_update(state.ema, state.params, state.step, ema_decay)
-    state.step += 1
-    return loss_sum / n, {k: v / n for k, v in aux_sum.items()}
+    with profiling.span("train.step", state.step):
+        state.optimizer.zero_grad(set_to_none=True)
+        loss_sum = None
+        aux_sum: Dict[str, torch.Tensor] = {}
+        for mb in micro_batches:
+            with profiling.span("loss.forward"):
+                loss, aux = loss_fn(mb)
+            with profiling.span("loss.backward"):
+                loss.backward()
+            loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
+            for k, v in aux.items():
+                aux_sum[k] = v.detach() if k not in aux_sum else aux_sum[k] + v.detach()
+        n = len(micro_batches)
+        with profiling.span("train.optimizer"):
+            for p in state.params.values():
+                if p.grad is not None:
+                    p.grad.div_(n)
+            if dist.is_distributed():
+                for p in state.params.values():  # every process reduces the same buffers
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                dist.all_reduce_mean_([p.grad for p in state.params.values()], group=data_group)
+                logged = torch.stack([loss_sum] + [aux_sum[k] for k in sorted(aux_sum)]).float()
+                dist.all_reduce_mean_([logged], group=data_group)
+                loss_sum = logged[0]
+                aux_sum = {k: logged[i + 1] for i, k in enumerate(sorted(aux_sum))}
+            lr = state.schedule(state.step)
+            for group in state.optimizer.param_groups:
+                group["lr"] = lr
+            state.optimizer.step()
+            if state.ema is not None:
+                ema_update(state.ema, state.params, state.step, ema_decay)
+        state.step += 1
+        return loss_sum / n, {k: v / n for k, v in aux_sum.items()}

@@ -22,6 +22,9 @@ with the float path's math (image / 127.5 − 1, mask > 0, masked = image ·
 (1 − mask)); the images come back as uint8, clip(images, 0, 1) · 255
 truncated. Float batches (the demo and eval flows) are untouched.
 
+The span `predict.upload` (`utils.profiling`) holds the batch's way to the
+device and its uint8 preprocessing.
+
 Data parallelism (`data_group`, one process per card): every process of the
 group is called with the same global batch and the same generator state. Each
 draws the whole batch's posterior noise (B, h, w, 4) and candidates (K, B, h,
@@ -50,6 +53,7 @@ import torch
 import torch.distributed as dist
 
 from .parallel.dist import group_src
+from .utils import profiling
 from .utils.encprop_gate import DEFAULT_MIN_PSNR, gate_encprop
 
 # array fields DiffusionEngine.sample consumes; strings stay on the host
@@ -157,10 +161,11 @@ class Predictor:
         or uint8 for a uint8 batch. With a data group, `batch` is the global
         batch and every process gets the whole result (aux["inters"], sample
         0's, comes from the group's first process)."""
-        arr = self.array_batch(batch)
-        uint8_in = "image" in arr and arr["image"].dtype == torch.uint8
-        if uint8_in:
-            arr = self.preprocess_uint8(arr)
+        with profiling.span("predict.upload"):
+            arr = self.array_batch(batch)
+            uint8_in = "image" in arr and arr["image"].dtype == torch.uint8
+            if uint8_in:
+                arr = self.preprocess_uint8(arr)
         b = next(iter(arr.values())).shape[0]
         rows = self.shard_rows(b)
         if self.data_group is not None:

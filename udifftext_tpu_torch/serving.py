@@ -27,6 +27,16 @@ Three faults of the JAX package's batcher are not carried over:
   the caller cancelled it, so a cancelled future cannot kill the
   completion thread.
 
+Spans (`utils.profiling`, recorded while its recorder is on), on the
+dispatcher thread: ``serve.collect`` from a group's first request until the
+group closes; ``serve.group`` from dispatch until its futures are resolved
+(key: the group's ``batch_key``), holding ``serve.stack`` (pad and stack),
+``serve.predict`` (the predictor call and the copy home queued) and
+``serve.finalize`` (the wait for the images, the rows sliced out); one
+``serve.request`` a request, from its enqueue until it is resolved, with
+its group's key. Pipelined, ``serve.group`` holds the launch and the
+completion thread's ``serve.complete`` the finalize and the resolution.
+
 Launch and finalize on CUDA: kernels run asynchronously, but a plain
 ``.cpu()`` on the completion thread would wait for everything queued on the
 stream, the next group's kernels included. So the launch stage ends by
@@ -73,6 +83,7 @@ import torch.distributed as dist
 
 from .charset import encode_label
 from .parallel.dist import group_src
+from .utils import profiling
 
 
 def batch_seed(seed: int, key: int) -> int:
@@ -243,24 +254,25 @@ class MicroBatcher:
                 return []
             if self._start(first):
                 break
-        deadline = time.monotonic() + self.max_delay
-        if self._inflight is not None:
-            # before the group closes: what arrives while the pipeline is
-            # full joins this group instead of waiting for the next one
-            self._inflight.acquire()
-        group = [first]
-        while len(group) < self.max_batch:
-            remaining = deadline - time.monotonic()
-            try:
-                nxt = (self._queue.get(timeout=remaining) if remaining > 0
-                       else self._queue.get_nowait())
-            except queue.Empty:
-                break
-            if nxt is None:  # shutdown marker: finish this group, stop after it
-                self._queue.put(None)
-                break
-            if self._start(nxt):
-                group.append(nxt)
+        with profiling.span("serve.collect"):
+            deadline = time.monotonic() + self.max_delay
+            if self._inflight is not None:
+                # before the group closes: what arrives while the pipeline is
+                # full joins this group instead of waiting for the next one
+                self._inflight.acquire()
+            group = [first]
+            while len(group) < self.max_batch:
+                remaining = deadline - time.monotonic()
+                try:
+                    nxt = (self._queue.get(timeout=remaining) if remaining > 0
+                           else self._queue.get_nowait())
+                except queue.Empty:
+                    break
+                if nxt is None:  # shutdown marker: finish this group, stop after it
+                    self._queue.put(None)
+                    break
+                if self._start(nxt):
+                    group.append(nxt)
         return group
 
     def _drain_queue(self) -> None:
@@ -284,7 +296,7 @@ class MicroBatcher:
                     del buf[:-100]
 
     def _resolve_group(self, futures: List[Future], results: Sequence[Any],
-                       waits: List[float], run_s: float) -> None:
+                       waits: List[float], run_s: float, enqueued: List[float]) -> None:
         if len(results) != len(futures):
             self._fail(futures, RuntimeError(
                 f"run_batch returned {len(results)} results for {len(futures)} items"))
@@ -292,6 +304,7 @@ class MicroBatcher:
         self._record_group(len(futures), waits, run_s)
         for fut, res in zip(futures, results):
             _settle(fut, res)
+        profiling.RECORDER.requests("serve.request", enqueued)
         with self._stats_lock:
             self._pending.difference_update(futures)
 
@@ -310,15 +323,17 @@ class MicroBatcher:
             entry = self._completion_q.get()
             if entry is None:
                 return
-            handle, futures, waits = entry
+            handle, futures, waits, enqueued = entry
             t0 = time.monotonic()
             try:
-                try:
-                    results = self._finalize(handle)
-                except Exception as e:  # noqa: BLE001 — fail only this group
-                    self._fail(futures, e)
-                    continue
-                self._resolve_group(futures, results, waits, time.monotonic() - t0)
+                with profiling.span("serve.complete"):
+                    try:
+                        results = self._finalize(handle)
+                    except Exception as e:  # noqa: BLE001 — fail only this group
+                        self._fail(futures, e)
+                        continue
+                    self._resolve_group(futures, results, waits, time.monotonic() - t0,
+                                        enqueued)
             finally:
                 self._inflight.release()
 
@@ -337,22 +352,25 @@ class MicroBatcher:
                 items = [item for item, _, _ in group]
                 futures = [fut for _, fut, _ in group]
                 t_dispatch = time.monotonic()
-                waits = [t_dispatch - t_in for _, _, t_in in group]
-                if self._finalize is not None:
+                enqueued = [t_in for _, _, t_in in group]
+                waits = [t_dispatch - t_in for t_in in enqueued]
+                with profiling.span("serve.group"):
+                    if self._finalize is not None:
+                        try:
+                            handle = self._run_batch(items)
+                        except Exception as e:  # noqa: BLE001
+                            self._inflight.release()
+                            self._fail(futures, e)
+                            continue
+                        self._completion_q.put((handle, futures, waits, enqueued))
+                        continue
                     try:
-                        handle = self._run_batch(items)
-                    except Exception as e:  # noqa: BLE001
-                        self._inflight.release()
+                        results = self._run_batch(items)
+                    except Exception as e:  # noqa: BLE001 — fail the group, keep serving
                         self._fail(futures, e)
                         continue
-                    self._completion_q.put((handle, futures, waits))
-                    continue
-                try:
-                    results = self._run_batch(items)
-                except Exception as e:  # noqa: BLE001 — fail the group, keep serving
-                    self._fail(futures, e)
-                    continue
-                self._resolve_group(futures, results, waits, time.monotonic() - t_dispatch)
+                    self._resolve_group(futures, results, waits,
+                                        time.monotonic() - t_dispatch, enqueued)
         finally:
             self._drain_queue()
             if self._completion_q is not None:
@@ -493,24 +511,29 @@ class InpaintService:
 
     def _launch_group(self, rows: List[Dict[str, np.ndarray]]):
         """Stage 1: pad, stack, call the predictor, queue the copy home."""
-        arr_batch = self.batch_of(rows)
+        with profiling.span("serve.stack"):
+            arr_batch = self.batch_of(rows)
         with self._key_lock:
             key = self._key_counter
             self._key_counter += 1
-        images = HostCopy(self.predictor(arr_batch, key))
+        profiling.RECORDER.set_key(key, "serve.group")
+        with profiling.span("serve.predict", key):
+            images = HostCopy(self.predictor(arr_batch, key))
         return images, key, len(arr_batch["image"]), len(rows)
 
     def _finalize_group(self, handle) -> List[Dict[str, Any]]:
         """Stage 2: wait for this group's images and slice the real rows out."""
         copy, key, bucket, n_real = handle
-        images = copy.numpy()
-        if images.shape[0] != bucket:
-            raise RuntimeError(f"predictor returned batch {images.shape[0]}, expected {bucket}")
-        if images.dtype != np.uint8:  # float [0, 1] from a float predictor
-            images = (np.clip(images, 0.0, 1.0) * 255).astype(np.uint8)
-        # .copy(): a row view would keep the whole batch alive
-        return [{"image": images[i].copy(), "batch_key": key, "row": i, "batch_size": bucket}
-                for i in range(n_real)]
+        profiling.RECORDER.set_key(key, "serve.complete")
+        with profiling.span("serve.finalize", key):
+            images = copy.numpy()
+            if images.shape[0] != bucket:
+                raise RuntimeError(f"predictor returned batch {images.shape[0]}, expected {bucket}")
+            if images.dtype != np.uint8:  # float [0, 1] from a float predictor
+                images = (np.clip(images, 0.0, 1.0) * 255).astype(np.uint8)
+            # .copy(): a row view would keep the whole batch alive
+            return [{"image": images[i].copy(), "batch_key": key, "row": i, "batch_size": bucket}
+                    for i in range(n_real)]
 
     def _run_group(self, rows: List[Dict[str, np.ndarray]]) -> List[Dict[str, Any]]:
         return self._finalize_group(self._launch_group(rows))

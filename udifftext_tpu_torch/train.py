@@ -12,7 +12,9 @@ unless one is passed, then `train` with checkpoints under
 `<save_ckpt_dir>/udifftext_tpu_torch` and a `SimpleProfiler` (sections
 host_to_device, train_step, image_logs, checkpoint: the loop blocked in
 `save`; restore; and the background writes' own seconds; its table printed
-at the end).
+at the end, on a card with each section's device seconds beside its host
+seconds: train_step's host seconds are its enqueue, host_to_device's the
+wait for the previous step's device work).
 Under torchrun each process takes its share of every micro-batch, and the
 gradients are averaged once per optimizer step (`parallel/dist.py`).
 
@@ -57,6 +59,7 @@ from .parallel import dist
 from .parallel.train import TrainState, train_step
 from .utils.logger import MetricsLogger
 from .utils.png import write_png
+from .utils import profiling
 from .utils.profiling import SimpleProfiler
 from .utils.train_ckpt import AsyncCheckpointWriter, latest_checkpoint, restore_checkpoint
 
@@ -74,8 +77,9 @@ def batch_keys(engine) -> Tuple[str, ...]:
 
 def to_device(batch: Mapping[str, Any], device: torch.device,
               keys: Sequence[str] = BATCH_KEYS) -> Dict[str, torch.Tensor]:
-    """The batch's `keys` as tensors on `device`."""
-    return {k: torch.as_tensor(np.asarray(batch[k])).to(device) for k in keys if k in batch}
+    """The batch's `keys` as tensors on `device` (the span `train.to_device`)."""
+    with profiling.span("train.to_device"):
+        return {k: torch.as_tensor(np.asarray(batch[k])).to(device) for k in keys if k in batch}
 
 
 def save_image_logs(engine, batch: Dict[str, torch.Tensor], generator: torch.Generator,
@@ -123,7 +127,7 @@ def train(cfgs: Mapping[str, Any], batches, bundle: EngineBundle, seed: Optional
         print(f"seed: {seed}", flush=True)
     engine = bundle.engine
     dev = engine.device
-    profiler = profiler or SimpleProfiler()
+    profiler = profiler or SimpleProfiler(cuda=dev.type == "cuda")
     lightning = cfgs.get("lightning", {}) or {}
     accum = max(int(lightning.get("accumulate_grad_batches", 1)), 1)
     max_epochs = int(lightning.get("max_epochs", 100))
@@ -208,7 +212,7 @@ def main(cfgs: Mapping[str, Any], dataloader=None, device: torch.device | str = 
     bundle = init_model(cfgs, dev, seed=seed, model_cfg=model_cfg, train=True)
     if dataloader is None:
         dataloader = get_dataloader(cfgs, "train")
-    profiler = profiler or SimpleProfiler()
+    profiler = profiler or SimpleProfiler(cuda=dev.type == "cuda")
     ckpt_dir = os.path.join(str(cfgs.get("save_ckpt_dir", "./checkpoints")), CKPT_SUBDIR)
     state = train(cfgs, dataloader, bundle, seed=seed, log_every=log_every, ckpt_dir=ckpt_dir,
                   profiler=profiler)
