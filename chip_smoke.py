@@ -51,11 +51,15 @@ matplotlib, imageio or safetensors). Phases, each printed on its own line:
    (the max subtraction binding);
 3d. the probe-level kernels against their plain versions: fused_groupnorm_silu
    at the ResBlock widths (bf16, fp32, without SiLU at eps 1e-6, and under a
-   large common offset), with N = 4133 (a ragged last CTA) and at the VAE
-   decoder's (1, 512, 512, 128) fp32, which must take route "two_pass" where
-   every other case takes "cluster", each with its plan, its back-to-back
-   time and the device launches a call counted by torch.profiler (1 on
-   "cluster", 2 on "two_pass"), beside F.group_norm + F.silu; every flash variant
+   large common offset), with N = 4133 (a ragged last CTA), and at the
+   cells' shapes: the UNet's B=16 ds1 and 960-channel decoder widths (bf16),
+   the served decode's B=8 levels and the fine-tuning encodes' B=16 levels
+   (fp32), and the autoencoder's (16, 512, 512, 128) and (1, 512, 512, 128)
+   fp32; the 960-channel ones, (2, 1000, 64) and the autoencoder's levels
+   above 64² must take route "stream" (the 512² ones within 2.5 and 0.25 ms
+   a call) where every other case takes "cluster", each with its plan, its back-to-back time, bit-equal on a second
+   call, and the device launches a call counted by torch.profiler (1 on
+   "cluster", 2 on "stream"), beside F.group_norm + F.silu; every flash variant
    (v1-v4) at every tile pair at B·H = 160 and 10, N = 4096 and 1024, with
    its route ("mma": `wgmma`, bf16; "fma": fp32) and registers, beside
    scaled_dot_product_attention, plus a case whose logits pass 80, where v1
@@ -330,11 +334,18 @@ and the STR tools, dp serving, the tensor-parallel step, the probes of phase
 22 and the GEGLU sweep's direct launches) runs with the
 launch counts set to 0 just before it and read just after (phases 20 and 21
 count in each rank; their `dp_serve` and `tp_train` entries are rank 0's).
-Any failure exits non-zero. The
+The fused GroupNorm's count on each path is the `GroupNorm32` calls
+predicted from the models' norms (`norm_counts`, `gn_launches`: every call
+without autograd) plus the probes' direct calls; phase 22's probes, which
+make too many calls to predict, are held to the smoke's own reading of the
+gate (`watch_groupnorm32`), and every path to the cross-check that the
+port counted as many calls on the kernel as that reading
+(`groupnorm32_unserved` 0). Any failure exits non-zero. The
 second-to-last line is the kernels' JSON record: each kernel's `launches`
 counts the path named by its `launches_path` (training for the kernels the
-UNet runs, the glue probe for the four that only the fused block runs, the
-ResBlock probe for the fused GroupNorm, the variants probe for v1-v4),
+UNet and the autoencoder run, the fused GroupNorm among them, the glue
+probe for the four that only the fused block runs, the variants probe for
+v1-v4),
 `launches_by_path` holds every path's count, and the flash, GEGLU,
 t_attn, GroupNorm and variant kernels carry `kernel_route`, the route of
 their recorded case (ln_gemm and ln_gemm3 too). The last line is
@@ -435,15 +446,78 @@ def rel_l2(got, want) -> float:
     return float((got - want).norm() / want.norm())
 
 
+# GroupNorm32 calls the fused kernel must serve since the last reset (the
+# smoke's own reading of the gate, `watch_groupnorm32`), and the port's
+# `groupnorm.kernel` counter at that reset
+GN_WATCH = {"eligible": 0, "kernel0": 0}
+
+
+class Watched:
+    """The fused GroupNorm's launches in an expected launch dict where a path
+    (phase 22's probes) has no prediction of its own: equal to the
+    GroupNorm32 calls `watch_groupnorm32` read as the kernel's since the
+    last reset."""
+
+    def __eq__(self, other):
+        return other == GN_WATCH["eligible"]
+
+    def __repr__(self):
+        return f"watched({GN_WATCH['eligible']})"
+
+
+def watch_groupnorm32() -> None:
+    """Wrap `GroupNorm32.forward` to count the calls the fused kernel must
+    serve, read independently of the port's gate: impl "auto", x a
+    contiguous, 16-byte aligned bf16 or fp32 CUDA tensor of 3 or 4 dims
+    with rows and C % 32 == 0, C % 8 == 0, C <= 4096, fp32 parameters on its
+    device, and nothing that autograd would record."""
+    import torch
+
+    from udifftext_tpu_torch.models.layers import GroupNorm32
+
+    if getattr(GroupNorm32.forward, "watched", False):
+        return
+    forward = GroupNorm32.forward
+
+    def watched(self, x, silu=False):
+        w, b = self.weight, self.bias
+        c = x.shape[-1]
+        records = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad
+                                               or b.requires_grad)
+        if (self.impl == "auto" and x.is_cuda and x.dtype in (torch.bfloat16, torch.float32)
+                and x.ndim in (3, 4) and x.numel() > 0 and c % self.num_groups == 0
+                and c % 8 == 0 and c <= 4096 and x.is_contiguous() and x.data_ptr() % 16 == 0
+                and w.dtype == b.dtype == torch.float32 and w.device == x.device
+                and not records):
+            GN_WATCH["eligible"] += 1
+        return forward(self, x, silu)
+
+    watched.watched = True
+    GroupNorm32.forward = watched
+
+
+def _groupnorm_kernel_calls() -> int:
+    from udifftext_tpu_torch.utils.profiling import RECORDER
+
+    return RECORDER.counters().get("groupnorm.kernel", 0)
+
+
 def counts(*fns) -> dict:
     """Launch counts by wrapper name; a wrapper that counts per variant in a
-    dict gives one entry per variant, `<name>_<variant>`."""
+    dict gives one entry per variant, `<name>_<variant>`. Beside the fused
+    GroupNorm's launches (GroupNorm32's and direct calls alike), a cross-check
+    that every path expects at 0: `groupnorm32_unserved`, the GroupNorm32
+    calls since the last reset that `watch_groupnorm32` read as the kernel's
+    less those the port counted as the kernel's (`groupnorm.kernel`)."""
     out = {}
     for f in fns:
         if isinstance(f.launches, dict):
             out.update({f"{f.__name__}_{k}": n for k, n in f.launches.items()})
         else:
             out[f.__name__] = f.launches
+        if f.__name__ == "fused_groupnorm_silu":
+            out["groupnorm32_unserved"] = (GN_WATCH["eligible"] + GN_WATCH["kernel0"]
+                                           - _groupnorm_kernel_calls())
     return out
 
 
@@ -453,6 +527,37 @@ def reset(*fns) -> None:
             f.launches.update(dict.fromkeys(f.launches, 0))
         else:
             f.launches = 0
+        if f.__name__ == "fused_groupnorm_silu":
+            GN_WATCH.update(eligible=0, kernel0=_groupnorm_kernel_calls())
+
+
+def norm_counts(engine) -> dict:
+    """GroupNorm32 calls of one UNet eval ("unet"), of its middle and output
+    blocks alone ("unet_dec", a decode_cached eval), of an autoencoder
+    encode and decode, and of a fine-tuning forward of the shipped train
+    graph before the first trainable layer ("unet_frozen": input block 1's
+    ResBlock and its SpatialTransformer's norm): one a module and call."""
+    from udifftext_tpu_torch.models.layers import GroupNorm32
+
+    def n(*mods):
+        return sum(isinstance(m, GroupNorm32) for mod in mods for m in mod.modules())
+
+    u = engine.unet
+    return {"unet": n(u), "unet_dec": n(u.middle_block, u.output_blocks, u.out),
+            "encode": n(engine.vae.encoder), "decode": n(engine.vae.decoder),
+            "unet_frozen": n(u.input_blocks[1])}
+
+
+def gn_launches(norms: dict, evals: int = 0, cached: int = 0, samples: int = 0,
+                encodes: int = 0, decodes: int = 0, frozen: int = 0) -> int:
+    """The fused GroupNorm's launches (`norm_counts`'s `norms`) of `evals`
+    whole UNet evals and `cached` decode_cached ones without autograd,
+    `samples` samples' masked-image encode and final decode, `encodes` and
+    `decodes` more of the autoencoder, and `frozen` fine-tuning forwards'
+    norms before the first trainable layer."""
+    return (evals * norms["unet"] + cached * norms["unet_dec"]
+            + (samples + encodes) * norms["encode"] + (samples + decodes) * norms["decode"]
+            + frozen * norms["unet_frozen"])
 
 
 # kernel-name fragments (lower case) → the groups of the device-time breakdown,
@@ -713,11 +818,14 @@ def sampling_options(engine, plain_engine, batch, kernel_fns, expected, by_path,
     size = batch["image"].shape[1]
     hw = size // engine.latent_factor
     (enc_fl, enc_ge), (dec_fl, dec_ge) = plan_launches(engine.unet, hw)
+    norms = norm_counts(engine)
 
-    def evals(full: int, decode: int = 0) -> dict:
-        """Launch counts of `full` whole UNet evals and `decode` decode_cached ones."""
+    def evals(full: int, decode: int = 0, samples: int = 0) -> dict:
+        """Launch counts of `full` whole UNet evals and `decode` decode_cached
+        ones, and of `samples` samples' encode and decode."""
         return expected(flash_attention=full * (enc_fl + dec_fl) + decode * dec_fl,
-                        geglu_ff=full * (enc_ge + dec_ge) + decode * dec_ge)
+                        geglu_ff=full * (enc_ge + dec_ge) + decode * dec_ge,
+                        fused_groupnorm_silu=gn_launches(norms, full, decode, samples))
 
     # (a) the cached entry points at the demo's CFG-doubled B=2, bf16, kernels
     g = torch.Generator(dev).manual_seed(14)
@@ -781,7 +889,7 @@ def sampling_options(engine, plain_engine, batch, kernel_fns, expected, by_path,
             secs[k].append(time.perf_counter() - t0)
             launches = counts(*fns)
             n_key = int(SP.uniform_key_mask(50, k).sum()) if k else 50
-            want = evals(2 + n_key, 50 - n_key)  # 2 batched search evals, then the steps
+            want = evals(2 + n_key, 50 - n_key, 1)  # 2 batched search evals, then the steps
             if launches != want:
                 fail(f"encprop interval {k}: launches {launches}, the plan predicts {want} "
                      f"({n_key} key steps)")
@@ -964,7 +1072,9 @@ def conditioning_options(dev, card: str, kernel_fns, expected, by_path, demo_s: 
     # (a) the demo flow: CFG 4.0, 10 candidates in the batched search, 50 steps
     pred = Predictor(engine, num_steps=50, cfg_scale=4.0, noise_iters=10,
                      noise_search_batched=True)
-    secs, want = [], expected(flash_attention=52 * 10, geglu_ff=52 * 15)
+    norms = norm_counts(engine)
+    secs, want = [], expected(flash_attention=52 * 10, geglu_ff=52 * 15,
+                              fused_groupnorm_silu=gn_launches(norms, evals=52, samples=1))
     held = torch.cuda.memory_allocated(dev) / 2**30  # the engine and what earlier phases hold
     torch.cuda.reset_peak_memory_stats(dev)
     for run in range(3):  # the first builds caches
@@ -999,7 +1109,9 @@ def conditioning_options(dev, card: str, kernel_fns, expected, by_path, demo_s: 
                                    noise_search_batched=True)(batch,
                                                               torch.Generator(dev).manual_seed(0))
         got = counts(*kernel_fns)
-        if got != (expected(flash_attention=70, geglu_ff=105) if name == "auto" else expected()):
+        if got != (expected(flash_attention=70, geglu_ff=105,
+                            fused_groupnorm_silu=gn_launches(norms, evals=7, samples=1))
+                   if name == "auto" else expected()):
             fail(f"a 5-step options sample under {name!r} launched {got}")
     err = rel_l2(short["auto"], short["plain"])
     log(f"[options] 5-step sample with kernels against attn_impl='plain': relative L2 {err:.3e} "
@@ -1051,8 +1163,11 @@ def conditioning_options(dev, card: str, kernel_fns, expected, by_path, demo_s: 
     table = "general_conditioner.embedders.3.embedding.weight"
     rows_moved = int((trained[table] != after[table]).any(dim=1).sum())
     n_mb = steps * accum
+    # the frozen encodes alone take the fused GroupNorm: the trainable
+    # embedders feed the UNet's input, so every UNet norm records a gradient
     want = expected(flash_attention=n_mb * 10, flash_attention_bwd=n_mb * 10,
-                    geglu_ff=n_mb * 15)
+                    geglu_ff=n_mb * 15,
+                    fused_groupnorm_silu=gn_launches(norm_counts(engine), encodes=2 * n_mb))
     log(f"[options] {steps} fine-tuning steps of {accum}×{micro_b} in {train_s:.3f} s (the "
         f"second {rows[-1]['time'] - rows[0]['time']:.3f} s); trainable {len(trained)} tensors "
         f"({len(emb_names)} of the embedders: {emb_names}), {len(moved)} moved, "
@@ -1117,6 +1232,7 @@ def vae_gan(dev, card: str, kernel_fns, expected, by_path) -> float:
     from udifftext_tpu_torch.builders import TEXTDESIGN_SD_2, randomize_parameters
     from udifftext_tpu_torch.diffusion import vae_loss
     from udifftext_tpu_torch.models.discriminator import NLayerDiscriminator
+    from udifftext_tpu_torch.models.layers import GroupNorm32
     from udifftext_tpu_torch.models.lpips import LPIPSAlex
     from udifftext_tpu_torch.models.vae import AutoencoderKL, DDConfig
 
@@ -1199,8 +1315,12 @@ def vae_gan(dev, card: str, kernel_fns, expected, by_path) -> float:
     if still or disc_moved or vae_moved or disc_still:
         fail(f"vae_gan: VAE still {still[:3]}, discriminator changed by ae_step {disc_moved[:3]}, "
              f"VAE changed by disc_step {vae_moved[:3]}, discriminator still {disc_still[:3]}")
-    if int(disc2["main.3.num_batches_tracked"]) != 2 or launches != expected():
-        fail(f"vae_gan: running statistics or launches {launches}")
+    # each of the three disc steps encodes and decodes without autograd: every
+    # norm of the autoencoder once a step on the fused GroupNorm
+    want = expected(fused_groupnorm_silu=3 * sum(isinstance(m, GroupNorm32)
+                                                 for m in vae.modules()))
+    if int(disc2["main.3.num_batches_tracked"]) != 2 or launches != want:
+        fail(f"vae_gan: running statistics or launches {launches}, expected {want}")
     del vae, disc, lpips, state, vae0, vae1, vae2, disc0, disc1, disc2
     torch.cuda.empty_cache()
     return time.perf_counter() - t_phase
@@ -1555,6 +1675,7 @@ def multicard_child(work: str) -> None:
         dist.maybe_init_distributed(dev)
     _build.load_library()
     kernel_fns = kernel_wrappers()
+    watch_groupnorm32()
 
     # 20. the dp-2 service
     reset(*kernel_fns)
@@ -1576,7 +1697,8 @@ def multicard_child(work: str) -> None:
         groups = svc.serve()
         run = svc.run
     torch.cuda.synchronize(dev)
-    print(json.dumps({"phase": 20, "rank": rank, "groups": groups, "launches": counts(*kernel_fns),
+    print(json.dumps({"phase": 20, "rank": rank, "groups": groups,
+                      "launches": counts(*kernel_fns),
                       "scores": run.last_aux["noise_scores"].float().cpu().tolist(),
                       "s": time.perf_counter() - t0,
                       "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}), flush=True)
@@ -1651,6 +1773,7 @@ def multicard_phases(dev, card: str, kernel_fns, expected, by_path) -> float:
             one_coords = [(r["batch_key"], r["row"], r["batch_size"]) for r in res]
             group = svc.batch_of([svc.build_row(r) for r in dp_requests()])
             one_engine = svc.predictor.predictor.engine
+            norms = norm_counts(one_engine)
             del svc, res
             # 21, this process: the unsharded step from the same weights and draws
             engine = build_engine(TEXTDESIGN_SD_2_TRAIN, torch.bfloat16, dev, train=True).engine
@@ -1724,7 +1847,9 @@ def multicard_phases(dev, card: str, kernel_fns, expected, by_path) -> float:
     diff = np.abs(dp2["images"].astype(np.int32) - same_images.astype(np.int32))
     img_err = float(np.linalg.norm(diff) / np.linalg.norm(same_images.astype(np.float64)))
     within1 = float((diff <= 1).mean())
-    per_group = expected(flash_attention=520, geglu_ff=780)
+    # a rank's rows: 52 UNet evals, the masked images' encode and the decode
+    per_group = expected(flash_attention=520, geglu_ff=780,
+                         fused_groupnorm_silu=gn_launches(norms, evals=52, samples=1))
     log(f"[dp_serve] {card}: a bucket of {DP_BUCKET} (50 steps, CFG 4.0, 10 candidates in the "
         f"batched search, 512² uint8) on 2 ranks ({DP_BUCKET // 2} rows each) against one "
         f"process: global scores max abs diff {score_err:.3e} (tolerance {score_tol:.3e}, 1e-4 "
@@ -1785,7 +1910,9 @@ def multicard_phases(dev, card: str, kernel_fns, expected, by_path) -> float:
     ds1 = [f"unet.{b_}.1.transformer_blocks.0.{a_}" for b_ in
            ("input_blocks.1", "input_blocks.2", "output_blocks.9", "output_blocks.10",
             "output_blocks.11") for a_ in ("attn1", "t_attn")]
-    per_micro = expected(flash_attention=10, flash_attention_bwd=9, geglu_ff=15)
+    # on each rank, the two frozen encodes and the norms before the first t_attn
+    per_micro = expected(flash_attention=10, flash_attention_bwd=9, geglu_ff=15,
+                         fused_groupnorm_silu=gn_launches(norms, encodes=2, frozen=1))
     log(f"[tp_train] {card}: one step of {TP_MICRO} synthetic 512² samples at tensor degree 2 "
         f"(TEXTDESIGN_SD_2_TRAIN, bf16, fp32 master weights, seeded weights and draws) against "
         f"the unsharded step: loss {tp_loss:.6f} / {ref_loss:.6f}, relative error {loss_err:.2e} "
@@ -1897,6 +2024,10 @@ def probes_phase(dev, card: str, kernel_fns, expected, by_path) -> float:
          tuple(sweep) + (geglu_sweep.WRAPPER, geglu_sweep.COMPOSITION, geglu_sweep.PRODUCTS),
          expected(geglu_ff=calls)),
     )
+    # the fused GroupNorm's launches in the probes' eager and timed calls: the
+    # smoke's own reading of the gate (`Watched`)
+    probes = tuple((n_, c_, l_, {**w_, "fused_groupnorm_silu": Watched()})
+                   for n_, c_, l_, w_ in probes)
     checks = {  # the labels that hold no time, and the bound each must keep
         kv_hoist_probe.DIFF_LABELS[0]: 0.0, kv_hoist_probe.DIFF_LABELS[1]: 0.0,
         test_parity_probe.DIFF_LABEL: 0.0, perf_probe.COUNT_GAP: 0.0,
@@ -2015,6 +2146,7 @@ def main() -> None:
     from udifftext_tpu_torch.train import to_device, train
 
     kernel_fns = kernel_wrappers()
+    watch_groupnorm32()
 
     def expected(**launched) -> dict:
         """A path's launch counts: the named kernels, and 0 for every other."""
@@ -2037,8 +2169,9 @@ def main() -> None:
     for line in _build.library_path().with_suffix(".log").read_text().splitlines():
         m = re.search(r"entry function '\w*?((?:flash_fwd_mma|flash_bwd_dq_mma|flash_bwd_dkdv_mma"
                       r"|flash_fwd|flash_bwd_dq|flash_bwd_dkdv|geglu_mma|geglu_wmma"
-                      r"|geglu_simt|geglu_reduce|ln_gemm_mma|ln_gemm|cross_attn_mma|cross_attn|gn_stats"
-                      r"|gn_apply|gn_cluster|flash_variant_mma|flash_variant_fma)_kernel)(\w*)'",
+                      r"|geglu_simt|geglu_reduce|ln_gemm_mma|ln_gemm|cross_attn_mma|cross_attn"
+                      r"|gn_stream_stats|gn_stream_apply|gn_cluster|flash_variant_mma"
+                      r"|flash_variant_fma)_kernel)(\w*)'",
                       line)
         if m:
             kernel = m.group(1) + m.group(2).replace("__nv_bfloat16", "bf16")
@@ -2049,8 +2182,9 @@ def main() -> None:
                 registers[kernel] = int(used.group(1))
             if "_mma_" in kernel and "spill stores" in line:
                 mma_kernels.add(kernel)
-                if "0 bytes spill stores, 0 bytes spill loads" not in line:
-                    fail(f"{kernel} spills registers: {line.strip()}")
+            if (("_mma_" in kernel or kernel.startswith("gn_")) and "spill stores" in line
+                    and "0 bytes spill stores, 0 bytes spill loads" not in line):
+                fail(f"{kernel} spills registers: {line.strip()}")
         elif "wgmma" in line and "serialized" in line:
             fail(f"the compiler serialized a wgmma pipeline: {line.strip()}")
     def variant_kernel(dtype, bq, bk, transposed, clamp):
@@ -2501,7 +2635,7 @@ def main() -> None:
                     fn()
                 torch.cuda.synchronize()
             time.sleep(0.02)
-        names = ("gn_cluster_kernel", "gn_stats_kernel", "gn_apply_kernel")
+        names = ("gn_cluster_kernel", "gn_stream_stats_kernel", "gn_stream_apply_kernel")
         return sum(ev.count for ev in prof.key_averages()
                    if any(k in ev.key for k in names)) / calls
 
@@ -2510,15 +2644,41 @@ def main() -> None:
         ("ds1 B=2", (2, 64, 64, 320), torch.bfloat16, True, 1e-5, 0.0),
         ("ds2 B=2", (2, 32, 32, 640), torch.bfloat16, True, 1e-5, 0.0),
         ("ds4 B=2", (2, 16, 16, 1280), torch.bfloat16, True, 1e-5, 0.0),
-        ("ds1 decoder B=2", (2, 64, 64, 960), torch.bfloat16, True, 1e-5, 0.0),
+        ("ds1 decoder B=2", (2, 64, 64, 960), torch.bfloat16, True, 1e-5, 0.0),  # "stream"
         ("ds2 B=2 fp32", (2, 32, 32, 640), torch.float32, True, 1e-5, 0.0),
-        ("(2, 1000, 64) fp32, no SiLU, eps 1e-6", (2, 1000, 64), torch.float32, False, 1e-6, 0.0),
+        ("(2, 1000, 64) fp32, no SiLU, eps 1e-6", (2, 1000, 64), torch.float32, False, 1e-6,
+         0.0),  # "stream": a cluster would take 16-byte slices
         ("ds1 B=2 fp32, offset 1000", (2, 64, 64, 320), torch.float32, True, 1e-5, 1000.0),
         # N = 4133 rows: the last CTA of a cluster holds fewer than the others
         ("ragged N=4133 B=2", (2, 4133, 320), torch.bfloat16, True, 1e-5, 0.0),
-        # the VAE decoder's last GroupNorm: 4 MB a (sample, group), more than 8 CTAs hold
+        # the cells' shapes: the UNet's B=16 rows (served CFG-doubled groups of 8, fine-tuning
+        # micro-batches of 16) at ds1 and its decoder's 960 channels, bf16; the served decode's
+        # B=8 levels and the fine-tuning encodes' B=16 levels, fp32
+        ("UNet ds1 B=16", (16, 64, 64, 320), torch.bfloat16, True, 1e-5, 0.0),
+        ("UNet ds1 decoder B=16", (16, 64, 64, 960), torch.bfloat16, True, 1e-5, 0.0),
+        ("served decode (8, 512, 512, 128) fp32", (8, 512, 512, 128), torch.float32, True, 1e-6,
+         0.0),
+        ("served decode (8, 256, 256, 256) fp32", (8, 256, 256, 256), torch.float32, True, 1e-6,
+         0.0),
+        ("served decode (8, 128, 128, 512) fp32", (8, 128, 128, 512), torch.float32, True, 1e-6,
+         0.0),
+        ("encode (16, 256, 256, 256) fp32", (16, 256, 256, 256), torch.float32, True, 1e-6, 0.0),
+        ("encode (16, 128, 128, 512) fp32", (16, 128, 128, 512), torch.float32, True, 1e-6, 0.0),
+        # the autoencoder's 512² level: 4 MB a (sample, group), more than 8 CTAs hold, on
+        # route "stream"; the fine-tuning encodes' 16 rows and the demo decoder's one
+        ("VAE encoder (16, 512, 512, 128) fp32", (16, 512, 512, 128), torch.float32, True, 1e-6,
+         0.0),
         ("VAE decoder (1, 512, 512, 128) fp32", (1, 512, 512, 128), torch.float32, True, 1e-5, 0.0),
     ]
+    # route "stream" where no cluster holds the sample in slices of 32 bytes or more at two
+    # CTAs an SM; its targets at the autoencoder's 512² level (ms, one call)
+    gn_stream = {"ds1 decoder B=2", "(2, 1000, 64) fp32, no SiLU, eps 1e-6",
+                 "UNet ds1 decoder B=16", "served decode (8, 512, 512, 128) fp32",
+                 "served decode (8, 256, 256, 256) fp32", "served decode (8, 128, 128, 512) fp32",
+                 "encode (16, 256, 256, 256) fp32", "encode (16, 128, 128, 512) fp32",
+                 "VAE encoder (16, 512, 512, 128) fp32", "VAE decoder (1, 512, 512, 128) fp32"}
+    gn_target_ms = {"VAE encoder (16, 512, 512, 128) fp32": 2.5,
+                    "VAE decoder (1, 512, 512, 128) fp32": 0.25}
     for label, shape, dtype, with_silu, eps, offset in gn_cases:
         c = shape[-1]
         x = (torch.randn(*shape, generator=g, device=dev) + offset).to(dtype)
@@ -2552,7 +2712,9 @@ def main() -> None:
         records["fused_groupnorm_silu"].setdefault("kernel_route", plan.route)
         how = (f"route {plan.route}, {plan.slice_groups} groups a slice, {plan.cluster} CTAs a "
                f"cluster, {plan.rows} rows a CTA, {plan.smem_bytes} bytes of shared memory"
-               if plan.route == "cluster" else f"route {plan.route}, {plan.rows} rows a chunk")
+               if plan.route == "cluster" else
+               f"route {plan.route}, {plan.slice_groups} groups a slab, {plan.rows} rows a chunk, "
+               f"{plan.partials} partials a (sample, group)")
         if label in ("ds1 B=32", gn_cases[-1][0]):
             launched = device_launches(lambda: fused_groupnorm_silu(x, gn_s, gn_b, 32, eps,
                                                                     with_silu))
@@ -2566,7 +2728,12 @@ def main() -> None:
             f"{lib_nchw_ms:.3f} ms ({lib_queued_ms:.4f} ms queued)")
         if not err <= tol:
             fail(f"fused_groupnorm_silu {label} disagrees with its plain version")
-        want_route = "two_pass" if label == gn_cases[-1][0] else "cluster"
+        if not torch.equal(out, fused_groupnorm_silu(x, gn_s, gn_b, 32, eps, with_silu)):
+            fail(f"fused_groupnorm_silu {label} differs between two calls")
+        if label in gn_target_ms and not queued_ms <= gn_target_ms[label]:
+            fail(f"fused_groupnorm_silu {label}: {queued_ms:.4f} ms a call, over its target "
+                 f"{gn_target_ms[label]} ms")
+        want_route = "stream" if label in gn_stream else "cluster"
         if plan.route != want_route or plan != groupnorm_plan(
                 dtype, shape[0], x.numel() // (shape[0] * c), c, 32,
                 torch.cuda.get_device_properties(dev).multi_processor_count):
@@ -2721,6 +2888,7 @@ def main() -> None:
     batch = demo.build_batch(image, mask, "HELLO", 512, 512, 12)
     predictor = Predictor(bundle.engine, num_steps=50, cfg_scale=4.0, noise_iters=10,
                           noise_search_batched=True)
+    norms = norm_counts(bundle.engine)  # the shipped graph's GroupNorm32 calls
     by_path = {}
     seconds = []
     for run in range(4):  # the first builds caches; the spread of the rest is the host's
@@ -2742,10 +2910,12 @@ def main() -> None:
                 and float(images.max()) <= 1.0):
             fail("output is not finite in [0, 1]")
         evals = 2 + 50  # two batched search evals, then the 50 steps
-        want = expected(flash_attention=evals * 10, geglu_ff=evals * 15)
+        want = expected(flash_attention=evals * 10, geglu_ff=evals * 15,
+                        fused_groupnorm_silu=gn_launches(norms, evals, samples=1))
         if launches != want:
             fail(f"kernel launches {launches}, expected {want} (ds1+ds2 self-attention; "
-                 "ds1/ds2/ds4 feed-forwards; no backward when sampling)")
+                 "ds1/ds2/ds4 feed-forwards; every GroupNorm of the UNet evals, the masked "
+                 "image's encode and the decode; no backward when sampling)")
     by_path["demo"] = launches
     demo_s = statistics.median(seconds[1:])
     log(f"[demo] output mean {float(images.mean()):.4f} std {float(images.std()):.4f}; s per "
@@ -2830,7 +3000,8 @@ def main() -> None:
     log(f"[plain_ab] one UNet eval (B=2, bf16): launches auto {eval_counts['auto']}, plain "
         f"{eval_counts['plain']}; relative L2 auto vs plain {ab_err:.3e} (tol {ab_tol:.0e}); "
         f"GEGLU route {geglu_ff.last_route}")
-    if eval_counts["auto"] != expected(flash_attention=10, geglu_ff=15):
+    if eval_counts["auto"] != expected(flash_attention=10, geglu_ff=15,
+                                       fused_groupnorm_silu=norms["unet"]):
         fail(f"a UNet eval under attn_impl='auto' launched {eval_counts['auto']}")
     if eval_counts["plain"] != expected():
         fail(f"a UNet eval under attn_impl='plain' launched {eval_counts['plain']}")
@@ -2843,8 +3014,10 @@ def main() -> None:
     # GEGLU kernel alone is worth end to end)
     ffs = [m_ for m_ in bundle.engine.unet.modules() if isinstance(m_, GEGLUFeedForward)]
     ab_s = {"auto": [], "ff_plain": [], "plain": []}
-    ab_want = {"auto": expected(flash_attention=70, geglu_ff=105),
-               "ff_plain": expected(flash_attention=70), "plain": expected()}
+    gn_short = gn_launches(norms, evals=7, samples=1)
+    ab_want = {"auto": expected(flash_attention=70, geglu_ff=105, fused_groupnorm_silu=gn_short),
+               "ff_plain": expected(flash_attention=70, fused_groupnorm_silu=gn_short),
+               "plain": expected()}
     for name in ("plain", "ff_plain", "auto") + ("plain", "auto", "ff_plain", "ff_plain", "auto",
                                                  "plain"):  # the first three warm up
         eng = plain_bundle.engine if name == "plain" else bundle.engine
@@ -2912,11 +3085,14 @@ def main() -> None:
     if tuple(aux["inters"].shape) != (50, 512, 512, 3):
         fail(f"AAE intermediates {tuple(aux['inters'].shape)}")
     evals = 2 + 50 + n_aae
-    if not (n_aae >= 50 and launches == expected(flash_attention=evals * 10,
-                                                 flash_attention_bwd=n_aae * 10,
-                                                 geglu_ff=evals * 15)):
+    # the fused GroupNorm in the 52 sampling evals (not the gradient ones), the
+    # sample's encode and decode and the 50 intermediates' decodes
+    if not (n_aae >= 50 and launches == expected(
+            flash_attention=evals * 10, flash_attention_bwd=n_aae * 10, geglu_ff=evals * 15,
+            fused_groupnorm_silu=gn_launches(norms, 52, samples=1, decodes=50))):
         fail(f"AAE launches {launches}: expected ≥ 50 gradient evaluations, each with 10 "
-             "flash forwards and backwards and 15 GEGLU forwards, besides the 52 sampling evals")
+             "flash forwards and backwards and 15 GEGLU forwards, besides the 52 sampling "
+             "evals; the fused GroupNorm in the sampling evals and the autoencoder")
     short = Predictor(bundle.engine, num_steps=5, cfg_scale=4.0, noise_iters=10,
                       aae_enabled=True, detailed=True, noise_search_batched=True)
     torch.cuda.synchronize()
@@ -2984,8 +3160,13 @@ def main() -> None:
     # (input block 1's self-attention sits before every trainable
     # parameter)
     micro = steps * accum
+    # the frozen encodes (the image and the masked image) and the UNet's norms
+    # before the first trainable layer take the fused GroupNorm; the rest
+    # pass gradients and stay plain
     want = expected(flash_attention=micro * 10, flash_attention_bwd=micro * 9,
-                    geglu_ff=micro * 15)
+                    geglu_ff=micro * 15,
+                    fused_groupnorm_silu=gn_launches(norm_counts(engine), encodes=2 * micro,
+                                                     frozen=micro))
     if launches != want:
         fail(f"training launches {launches}, predicted {want}")
     with tempfile.TemporaryDirectory(prefix="udt_train_") as log_dir:
@@ -3114,8 +3295,11 @@ def main() -> None:
     if still:
         fail(f"trainable parameters did not move: {still[:5]}")
     micro = steps * accum  # the layer plan of phase 6: the OCR term adds no UNet eval
+    # phase 6's fused GroupNorms: the OCR term's decode passes gradients
     want = expected(flash_attention=micro * 10, flash_attention_bwd=micro * 9,
-                    geglu_ff=micro * 15)
+                    geglu_ff=micro * 15,
+                    fused_groupnorm_silu=gn_launches(norm_counts(engine), encodes=2 * micro,
+                                                     frozen=micro))
     if launches != want:
         fail(f"OCR-step launches {launches}, predicted {want}")
     # random PARSeq weights read every word at a CE past the 1.0 clamp, where
@@ -3320,9 +3504,12 @@ def main() -> None:
         f"group's launch ({rec['overlap']['share']:.3f}); peak device memory {peak:.2f} GiB; "
         f"{groups} groups in {serve_s:.2f} s; launches {launches}")
     log(f"[serve] record {json.dumps(rec)}")
-    if launches != expected(flash_attention=groups * 520, geglu_ff=groups * 780):
-        fail(f"serving launches {launches} over {groups} groups, expected 520 flash forwards and "
-             "780 GEGLU forwards a group")
+    norms = norm_counts(bench.predict.predictor.engine)
+    if launches != expected(flash_attention=groups * 520, geglu_ff=groups * 780,
+                            fused_groupnorm_silu=groups * gn_launches(norms, 52, samples=1)):
+        fail(f"serving launches {launches} over {groups} groups, expected 520 flash forwards, "
+             "780 GEGLU forwards and the fused GroupNorm in the 52 evals, the encode and the "
+             "decode a group")
     images = [r["image"] for r in sat + lat]
     if not all(im.dtype == np.uint8 and im.shape == (512, 512, 3) and im.std() > 0
                for im in images):
@@ -3369,7 +3556,8 @@ def main() -> None:
     b8_err = rel_l2(outs["auto"], outs["plain"])
     log(f"[serve] one UNet eval at bucket 8 (B=16, bf16): relative L2 kernels vs plain "
         f"{b8_err:.3e} (tol 5e-2, as phase 5b); launches auto {eval_counts['auto']}")
-    if not (b8_err <= 5e-2 and eval_counts["auto"] == expected(flash_attention=10, geglu_ff=15)
+    if not (b8_err <= 5e-2 and eval_counts["auto"] == expected(
+            flash_attention=10, geglu_ff=15, fused_groupnorm_silu=norms["unet"])
             and eval_counts["plain"] == expected() and torch.isfinite(outs["plain"]).all()):
         fail("the bucket-8 UNet eval with kernels disagrees with the plain one")
     del plain_eng, outs, x16, c16
@@ -3447,8 +3635,10 @@ def main() -> None:
             f"mechanism only); launches {launches}")
         # the sequential search runs 2 UNet evals a candidate, then the 50 steps
         evals = 2 * cfgs["noise_iters"] + cfgs["steps"]
+        norms = norm_counts(bundle.engine)
         want = expected(flash_attention=len(loader) * evals * 10,
-                        geglu_ff=len(loader) * evals * 15)
+                        geglu_ff=len(loader) * evals * 15,
+                        fused_groupnorm_silu=len(loader) * gn_launches(norms, evals, samples=1))
         if launches != want:
             fail(f"eval CLI launches {launches}, predicted {want} ({evals} UNet evals a sample)")
         if accuracy is None or res["total"] != len(loader):
@@ -3481,10 +3671,14 @@ def main() -> None:
         log(f"[eval_cli] one sample with attend-and-excite and map capture: {aae_s:.3f} s, "
             f"{n_aae} AAE gradient evaluations, layers {bundle.save_attn_layers}, segment map "
             f"{seg.shape} for '{label}'; launches {launches}")
+        # the fused GroupNorm in the sampling evals, the sample's encode and
+        # decode and its intermediates' decodes, one a step
+        gn_aae = gn_launches(norms, evals, samples=1, decodes=cfgs["steps"])
         evals += n_aae
         if not (n_aae >= 50 and launches == expected(flash_attention=evals * 10,
                                                      flash_attention_bwd=n_aae * 10,
-                                                     geglu_ff=evals * 15)):
+                                                     geglu_ff=evals * 15,
+                                                     fused_groupnorm_silu=gn_aae)):
             fail(f"eval CLI AAE launches {launches}")
         if (images.shape != (1, 512, 512, 3) or not np.isfinite(images).all()
                 or seg.shape != (len(label), 32, 32) or not np.isfinite(seg).all()
@@ -3560,9 +3754,18 @@ def main() -> None:
         # (noise_iters 0, no backward) 10 / 0 / 15 each, one log every 2 updates
         train_part = steps * accum
         log_evals = 20 * (steps // 2)
+        # the fused GroupNorm: phase 6's per micro-batch; per image log its
+        # sample's 20 evals, encode and decode, and the reconstruction's
+        # encode and decode
+        norms = norm_counts(build_engine(TEXTDESIGN_SD_2_TRAIN, torch.bfloat16, "meta",
+                                         train=True).engine)
+        gn_log = gn_launches(norms, 20, samples=1, encodes=1, decodes=1)
         want = expected(flash_attention=train_part * 10 + log_evals * 10,
                         flash_attention_bwd=train_part * 9,
-                        geglu_ff=train_part * 15 + log_evals * 15)
+                        geglu_ff=train_part * 15 + log_evals * 15,
+                        fused_groupnorm_silu=gn_launches(norms, encodes=2 * train_part,
+                                                         frozen=train_part)
+                        + (steps // 2) * gn_log)
         if launches != want:
             fail(f"train CLI launches {launches}, predicted {want} ({train_part} micro-batches, "
                  f"{log_evals} image-log evals)")
@@ -3624,7 +3827,10 @@ def main() -> None:
         # one epoch: per_epoch steps and the image log at its last step
         if launches != expected(flash_attention=(per_epoch * accum + 20) * 10,
                                 flash_attention_bwd=per_epoch * accum * 9,
-                                geglu_ff=(per_epoch * accum + 20) * 15):
+                                geglu_ff=(per_epoch * accum + 20) * 15,
+                                fused_groupnorm_silu=gn_launches(
+                                    norms, encodes=2 * per_epoch * accum,
+                                    frozen=per_epoch * accum) + gn_log):
             fail(f"resumed train CLI launches {launches}")
         del state, batches
     torch.cuda.empty_cache()
@@ -3884,7 +4090,7 @@ def main() -> None:
         ("geglu_ff_ln", "udifftext_tpu_torch/csrc/geglu.cu", "udifftext_tpu/ops/geglu.py:55",
          "geglu_ff_ln", "glue_probe"),
         ("fused_groupnorm_silu", "udifftext_tpu_torch/csrc/groupnorm.cu",
-         "udifftext_tpu/ops/groupnorm.py:36", "fused_groupnorm_silu", "resblock_probe"),
+         "udifftext_tpu/ops/groupnorm.py:36", "fused_groupnorm_silu", "train"),
         ("flash_variant_v1", "udifftext_tpu_torch/csrc/flash_variants.cu",
          "udifftext_tpu/ops/flash_attention.py:41", "flash_variant_v1", "flash_variants"),
         ("flash_variant_v2", "udifftext_tpu_torch/csrc/flash_variants.cu",

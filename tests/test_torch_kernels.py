@@ -707,6 +707,10 @@ def _gn_case(gen, shape, dtype, offset=0.0):
     return x, scale, bias
 
 
+# shapes that no cluster holds, or holds only in 16-byte slices or one CTA an SM
+GN_STREAM_CASES = {(3, 777, 64), (2, 1000, 64), (2, 64, 64, 960), (1, 256, 256, 256)}
+
+
 @pytest.mark.parametrize("shape,dtype,with_silu,eps", [
     ((2, 64, 64, 320), torch.bfloat16, True, 1e-5),
     ((32, 64, 64, 320), torch.bfloat16, True, 1e-5),
@@ -732,7 +736,7 @@ def test_groupnorm_matches_plain(gen, shape, dtype, with_silu, eps):
     assert fused_groupnorm_silu.launches == before + 1  # a wrapper call, on either route
     plan = groupnorm_plan(dtype, shape[0], x.numel() // (shape[0] * shape[-1]), shape[-1])
     assert fused_groupnorm_silu.last_plan == plan
-    assert plan.route == ("two_pass" if shape == (1, 256, 256, 256) else "cluster")
+    assert plan.route == ("stream" if shape in GN_STREAM_CASES else "cluster")
     _check(out, fused_groupnorm_silu_ref(x, scale, bias, 32, eps, with_silu))
 
 
@@ -754,7 +758,7 @@ def test_groupnorm_other_group_counts_and_offset(gen):
 def test_groupnorm_is_deterministic(gen):
     x, scale, bias = _gn_case(gen, (4, 64, 64, 320), torch.bfloat16)
     assert torch.equal(fused_groupnorm_silu(x, scale, bias), fused_groupnorm_silu(x, scale, bias))
-    x, scale, bias = _gn_case(gen, (1, 256, 256, 256), torch.float32)  # route "two_pass"
+    x, scale, bias = _gn_case(gen, (1, 256, 256, 256), torch.float32)  # route "stream"
     assert torch.equal(fused_groupnorm_silu(x, scale, bias), fused_groupnorm_silu(x, scale, bias))
 
 

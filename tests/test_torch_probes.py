@@ -158,12 +158,16 @@ def test_groupnorm_gate_and_chunking():
     assert not ok(torch.zeros(2, 64, 320).half())        # fp16
     assert not ok(torch.zeros(64, 320)) and not ok(torch.zeros(2, 0, 320))
     assert not ok(torch.zeros(2, 4, 512), num_groups=512)
-    # rows a block owns: 128 when the grid fills the card; halved otherwise,
-    # down to 16 and to no more than 64 chunks a sample
-    assert GN.rows_per_chunk(32, 4096) == 128
-    assert GN.rows_per_chunk(2, 4096) == 64 and GN.rows_per_chunk(2, 64) == 16
-    assert GN.rows_per_chunk(2, 1024) == 16 and GN.rows_per_chunk(1, 100000) == 128
-    assert GN.rows_per_chunk(16, 4096) == 128 and GN.rows_per_chunk(8, 4096) == 64
+    # route "stream": whole rows while the grid reaches two blocks an SM, the
+    # chunks the fewest that aim at four, at most 64 a sample; narrower slabs
+    # (down to 128 bytes) for one sample
+    plan = GN.stream_plan
+    assert plan(torch.float32, 16, 262144, 128)[1:] == (32, 0, 7944, 0, 2, 33)
+    assert plan(torch.float32, 8, 262144, 128)[1:] == (32, 0, 4096, 0, 2, 64)
+    assert plan(torch.float32, 1, 262144, 128)[1:] == (8, 0, 4096, 0, 2, 64)
+    assert plan(torch.float32, 1, 65536, 256)[1:] == (4, 0, 1024, 0, 2, 64)
+    assert plan(torch.bfloat16, 2, 64, 320)[1:] == (8, 0, 1, 0, 2, 64)  # 160-byte slabs
+    assert plan(torch.float32, 1, 3, 4096)[1:] == (1, 0, 1, 0, 2, 3)  # one row a chunk
 
 
 @pytest.mark.parametrize("shape,dtype,want", [
@@ -173,18 +177,19 @@ def test_groupnorm_gate_and_chunking():
     ((2, 4096, 320), torch.bfloat16, ("cluster", 4, 8, 512)),
     ((2, 1024, 640), torch.bfloat16, ("cluster", 2, 8, 128)),
     ((2, 256, 1280), torch.bfloat16, ("cluster", 1, 5, 52)),
-    ((2, 4096, 960), torch.bfloat16, ("cluster", 4, 8, 512)),      # the decoder's C/G = 30
+    ((2, 4096, 960), torch.bfloat16, ("stream", 8, 0, 64)),        # C/G = 30: one 131 KB CTA an SM
     ((2, 1024, 640), torch.float32, ("cluster", 1, 5, 205)),
-    ((3, 777, 64), torch.bfloat16, ("cluster", 4, 8, 98)),         # ragged: 7 CTAs of 98, one of 91
+    ((3, 777, 64), torch.bfloat16, ("stream", 32, 0, 13)),         # a 16-byte cluster slice streams
     ((1, 1, 4096), torch.float32, ("cluster", 1, 1, 1)),           # one row: one CTA
-    ((1, 262144, 128), torch.float32, ("two_pass", 0, 0, 128)),    # the VAE decoder's last GroupNorm
-    ((1, 65536, 256), torch.float32, ("two_pass", 0, 0, 128)),
+    ((1, 262144, 128), torch.float32, ("stream", 8, 0, 4096)),     # the VAE decoder's last norm
+    ((1, 65536, 256), torch.float32, ("stream", 4, 0, 1024)),
 ])
 def test_groupnorm_plan_picks_route_slice_and_cluster(shape, dtype, want):
     b, n, c = shape
     plan = GN.groupnorm_plan(dtype, b, n, c)
     assert (plan.route, plan.slice_groups, plan.cluster, plan.rows) == want
     assert plan.launches == (1 if plan.route == "cluster" else 2)
+    assert plan.partials == (plan.cluster if plan.route == "cluster" else -(-n // plan.rows))
     if plan.route == "cluster":
         esize = torch.empty((), dtype=dtype).element_size()
         width = plan.slice_groups * c // 32
@@ -196,8 +201,9 @@ def test_groupnorm_plan_picks_route_slice_and_cluster(shape, dtype, want):
 
 def test_groupnorm_plan_refuses_nothing_the_gate_takes():
     """Every shape `groupnorm_silu_supported` takes has a route; a cluster
-    plan always fits its limits, and "two_pass" is left only to a
-    (sample, group) that no 8 CTAs hold."""
+    plan always fits its limits, and "stream" is left to a (sample, group)
+    that no 8 CTAs hold, or hold only in slices under 32 bytes or one CTA an
+    SM; a stream plan bounds its partials and covers every row."""
     rs = np.random.RandomState(3)
     for _ in range(300):
         dtype = (torch.float32, torch.bfloat16)[rs.randint(2)]
@@ -214,10 +220,19 @@ def test_groupnorm_plan_refuses_nothing_the_gate_takes():
             assert plan.rows * (plan.cluster - 1) < n <= plan.rows * plan.cluster
             assert plan.smem_bytes <= GN.SMEM_MAX
         else:
-            cg = c // groups
-            narrowest = min(s * cg for s in range(1, groups + 1)
-                            if groups % s == 0 and s * cg * esize % 16 == 0)
-            assert GN.cluster_smem_bytes(-(-n // 8), narrowest, esize, 1) > GN.SMEM_MAX
+            cluster = GN.cluster_plan(dtype, b, n, c, groups)
+            if cluster is None:
+                cg = c // groups
+                narrowest = min(s * cg for s in range(1, groups + 1)
+                                if groups % s == 0 and s * cg * esize % 16 == 0)
+                assert GN.cluster_smem_bytes(-(-n // 8), narrowest, esize, 1) > GN.SMEM_MAX
+            else:
+                width = cluster.slice_groups * (c // groups) * esize
+                assert width < GN.MIN_CLUSTER_SLICE_BYTES or GN.blocks_per_sm(
+                    cluster.smem_bytes) < 2
+            assert plan.launches == 2 and 1 <= plan.partials <= GN.MAX_CHUNKS
+            assert groups % plan.slice_groups == 0
+            assert plan.rows * (plan.partials - 1) < n <= plan.rows * plan.partials
 
 
 @pytest.mark.parametrize("shape,dtype,parts,offset", [

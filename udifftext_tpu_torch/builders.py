@@ -30,7 +30,7 @@ from .diffusion.schedules import (SCALINGS, WEIGHTINGS, Discretization, Discrete
                                   EDMDiscretization, LegacyDDPMDiscretization)
 from .engine import DiffusionEngine
 from .models.label_encoder import LabelEncoder
-from .models.layers import GroupNorm32, cast_weights
+from .models.layers import GroupNorm32, cast_weights, set_norm_impl
 from .models.parseq import PARSeq
 from .models.unet import UNetModel
 from .models.vae import AutoencoderKL, DDConfig
@@ -296,8 +296,9 @@ def build_engine(model_cfg: Dict[str, Any], unet_dtype: torch.dtype = torch.bflo
     t_norm) are trainable instead, and kept in fp32 as master weights (their
     layers cast them to the compute dtype at use). `remat` turns on the
     UNet's gradient checkpointing. `attn_impl` ("auto" | "plain" | "flash")
-    goes to the UNet and the VAE: "plain" keeps every hand-written kernel out
-    of the run, for an A/B against "auto". Weights are PyTorch's default
+    goes to the UNet and the VAE, and to their GroupNorms (`set_norm_impl`):
+    "plain" keeps every hand-written kernel out of the run, for an A/B
+    against "auto". Weights are PyTorch's default
     initialization; load a state dict or call `randomize_parameters` next."""
     with torch.device(device):  # parameters are created (and initialized) in place
         return _build_engine(model_cfg, unet_dtype, device, train, remat, attn_impl)
@@ -396,6 +397,7 @@ def _build_engine(model_cfg, unet_dtype, device, train, remat, attn_impl) -> Eng
     # convs read NHWC activations through an NCHW view, which is
     # channels_last in memory: keep their weights channels_last too
     engine.to(device=device, memory_format=torch.channels_last)
+    set_norm_impl(engine, attn_impl)
     embedders = general.trainable_embedders if general is not None else ()
     trainable = trainable_mask(engine.named_parameters(), opt_keys, embedders) if train else {}
     for name, prm in engine.named_parameters():

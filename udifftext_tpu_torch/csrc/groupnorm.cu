@@ -44,21 +44,23 @@
 //   each SM, then a copy small enough for two CTAs an SM (one loads while
 //   the other computes), then the widest slice.
 //
-// "two_pass" (gn_stats_kernel, gn_apply_kernel, the first-cut kernels): a
-//   (sample, slice) that no cluster of 8 holds, e.g. the VAE decoder's
-//   (1, 512, 512, 128) fp32. Two launches, no atomics, deterministic; x is
-//   read twice, so above the 50 MB L2 it moves 3 units of traffic where the
-//   bound counts 2:
-//   pass 1, grid (chunks, B): a block sums d = x − pivot and d² for each
-//     channel of its rows (a thread owns one 16-byte vector of channels and
-//     strides over rows, so loads are coalesced along C), reduces channels
-//     to groups in a fixed order, and writes the chunk's (mean, M2) per
-//     group to an fp32 workspace (B, chunks, G, 2). The
-//     wrapper picks the rows per chunk: fewer while SMs would idle, but at
-//     most 64 chunks a sample, since pass 2 merges them one after the other;
-//   pass 2, grid (chunks, B): a block merges its sample's partials in chunk
-//     order with Chan's update, folds rstd·scale per channel and normalizes
-//     its chunk with 16-byte loads and stores.
+// "stream" (gn_stream_stats_kernel, gn_stream_apply_kernel): a (sample,
+//   slice) that no cluster holds, or holds only as a sliver of 16-64 bytes a
+//   row, e.g. the autoencoder's (16, 512, 512, 128) fp32. Two launches over
+//   one grid (chunks, G / S, B): a block owns `rows_per_chunk` rows of one
+//   (sample, slab of S whole groups). No atomics, deterministic; x is read
+//   twice and y written once (3 units of traffic where the bound counts 2):
+//   pass 1: the block streams its rows with 16-byte loads, four in flight a
+//     thread; a thread keeps a Welford (mean, M2) of each of its channels,
+//     and the block merges them with Chan's update in a fixed order (a warp
+//     a group, lanes then a shuffle tree) into one centered (mean, M2) a
+//     group, written to an fp32 workspace (B, chunks, G). The host bounds
+//     the chunks of a sample (`MAX_CHUNKS`) and picks the slab and chunks so
+//     that the grid fills the SMs;
+//   pass 2: each block merges its slab's partials of every chunk in chunk
+//     order (the same sums in every block), folds rstd·scale per channel and
+//     normalizes its rows with 16-byte loads and stores, last row first:
+//     the rows pass 1 read last are the ones still in L2.
 // A block per group would read C/G·2-byte slivers (20 bytes at C = 320) and
 // is avoided on both routes.
 
@@ -82,7 +84,9 @@ template <>
 struct Vec<bf16> {
   static constexpr int N = 8;
   __device__ static void load(const bf16* p, float (&out)[8]) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    unpack(*reinterpret_cast<const uint4*>(p), out);
+  }
+  __device__ static void unpack(const uint4& raw, float (&out)[8]) {
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -103,15 +107,18 @@ template <>
 struct Vec<float> {
   static constexpr int N = 4;
   __device__ static void load(const float* p, float (&out)[4]) {
-    const float4 a = *reinterpret_cast<const float4*>(p);
-    out[0] = a.x, out[1] = a.y, out[2] = a.z, out[3] = a.w;
+    unpack(*reinterpret_cast<const uint4*>(p), out);
+  }
+  __device__ static void unpack(const uint4& raw, float (&out)[4]) {
+    out[0] = __uint_as_float(raw.x), out[1] = __uint_as_float(raw.y);
+    out[2] = __uint_as_float(raw.z), out[3] = __uint_as_float(raw.w);
   }
   __device__ static void store(float* p, const float (&v)[4]) {
     *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
   }
 };
 
-// How a block's threads tile a chunk: tx picks a 16-byte vector of channels,
+// How a block's threads tile a slab: tx picks a 16-byte vector of channels,
 // ty a row; a thread strides over rows by `ty_n` and over vectors by `tx_n`.
 struct ThreadTile {
   int tx, ty, tx_n, ty_n;
@@ -122,139 +129,214 @@ struct ThreadTile {
     ty = threadIdx.x / tx_n;  // ty >= ty_n: a thread with no work
   }
   __device__ bool active() const { return ty < ty_n; }
+  // rows r < rows with r ≡ ty (mod ty_n): what thread row ty visits
+  __device__ int visits(int ty_, int rows) const {
+    return ty_ < rows ? (rows - ty_ + ty_n - 1) / ty_n : 0;
+  }
 };
 
-// Σ over the block's thread rows and a group's channels of csum, in a fixed order.
-__device__ __forceinline__ float group_sum(const float* csum, int ty_n, int C, int g, int cg) {
-  float s = 0.f;
-  for (int t = 0; t < ty_n; ++t)
-    for (int c = g * cg; c < (g + 1) * cg; ++c) s += csum[t * C + c];
-  return s;
+// Chan's update: (n, mean, m2) absorbs a disjoint part (nb, mb, m2b); a part
+// of no elements changes nothing.
+__device__ __forceinline__ void chan_merge(float& n, float& mean, float& m2, float nb, float mb,
+                                           float m2b) {
+  if (nb > 0.f) {
+    const float tot = n + nb, delta = mb - mean, w = nb / tot;
+    mean = fmaf(delta, w, mean);
+    m2 = m2 + m2b + delta * delta * (n * w);
+    n = tot;
+  }
 }
 
+// One row's vector into a thread's Welford state of k − 1 rows (inv = 1 / k).
+template <int VEC>
+__device__ __forceinline__ void welford(const float (&v)[VEC], float inv, float (&mean)[VEC],
+                                        float (&m2)[VEC]) {
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    const float d = v[i] - mean[i];
+    mean[i] = fmaf(d, inv, mean[i]);
+    m2[i] = fmaf(d, v[i] - mean[i], m2[i]);
+  }
+}
+
+constexpr int kStreamUnroll = 4;  // 16-byte loads in flight a thread
+
+// Pass 1 of route "stream": grid (chunks, G / S, B); the block's centered
+// (mean, M2) of each of its slab's groups into partial[b][chunk][group].
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-gn_stats_kernel(const T* __restrict__ x, float* __restrict__ partial, int N, int C, int G,
-                int rows_per_chunk) {
+gn_stream_stats_kernel(const T* __restrict__ x, float2* __restrict__ partial, int N, int C, int G,
+                       int cg, int width, int rows_per_chunk) {
   constexpr int VEC = Vec<T>::N;
-  // Σd and Σd² per (thread row, channel): [ty_n][C]; ty_n·C <= max(kThreads·VEC, C)
-  __shared__ float csum1[kMaxChannels], csum2[kMaxChannels];
-  const int chunk = blockIdx.x, b = blockIdx.y;
+  // a thread row's (mean, M2) per channel of the slab: [ty_n][width];
+  // ty_n·width <= max(kThreads·VEC, width) <= kMaxChannels
+  __shared__ float smean[kMaxChannels], sm2[kMaxChannels];
+  const int chunk = blockIdx.x, slab = blockIdx.y, b = blockIdx.z;
   const int r0 = chunk * rows_per_chunk;
   const int rows = min(rows_per_chunk, N - r0);
-  const int cg = C / G;
-  const ThreadTile tt(C / VEC);
-  const T* xb = x + ((size_t)b * N + r0) * C;
+  const int groups = width / cg;
+  const ThreadTile tt(width / VEC);
+  const T* xb = x + ((size_t)b * N + r0) * C + (size_t)slab * width;
+  const size_t step = (size_t)tt.ty_n * C;
 
-  // d = x − pivot, the pivot of a group being its first element in the
-  // chunk: a value from inside the data, so Σd² − (Σd)²/n does not cancel
   if (tt.active()) {
-    for (int j = tt.tx; j < C / VEC; j += tt.tx_n) {
-      float p[VEC], s1[VEC], s2[VEC];
+    for (int j = tt.tx; j < width / VEC; j += tt.tx_n) {
+      float mean[VEC], m2[VEC];
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) {
-        p[i] = udt::load_f32(xb + (j * VEC + i) / cg * cg);
-        s1[i] = s2[i] = 0.f;
+      for (int i = 0; i < VEC; ++i) mean[i] = m2[i] = 0.f;
+      const T* p = xb + (size_t)tt.ty * C + j * VEC;
+      int r = tt.ty, k = 0;
+      for (; r + (kStreamUnroll - 1) * tt.ty_n < rows; r += kStreamUnroll * tt.ty_n) {
+        float v[kStreamUnroll][VEC];
+#pragma unroll
+        for (int u = 0; u < kStreamUnroll; ++u) Vec<T>::load(p + u * step, v[u]);
+        p += kStreamUnroll * step;
+#pragma unroll
+        for (int u = 0; u < kStreamUnroll; ++u) welford(v[u], 1.f / (float)(++k), mean, m2);
       }
-#pragma unroll 4
-      for (int r = tt.ty; r < rows; r += tt.ty_n) {
+      for (; r < rows; r += tt.ty_n) {
         float v[VEC];
-        Vec<T>::load(xb + (size_t)r * C + j * VEC, v);
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) {
-          const float d = v[i] - p[i];
-          s1[i] += d;
-          s2[i] = fmaf(d, d, s2[i]);
-        }
+        Vec<T>::load(p, v);
+        p += step;
+        welford(v, 1.f / (float)(++k), mean, m2);
       }
 #pragma unroll
       for (int i = 0; i < VEC; ++i) {
-        csum1[tt.ty * C + j * VEC + i] = s1[i];
-        csum2[tt.ty * C + j * VEC + i] = s2[i];
+        smean[tt.ty * width + j * VEC + i] = mean[i];
+        sm2[tt.ty * width + j * VEC + i] = m2[i];
       }
     }
   }
   __syncthreads();
-  float* dst = partial + ((size_t)b * gridDim.x + chunk) * G * 2;
-  for (int g = threadIdx.x; g < G; g += kThreads) {
-    const float n = (float)(rows * cg);
-    const float sd = group_sum(csum1, tt.ty_n, C, g, cg), sdd = group_sum(csum2, tt.ty_n, C, g, cg);
-    dst[2 * g] = udt::load_f32(xb + g * cg) + sd / n;   // the chunk's mean
-    dst[2 * g + 1] = fmaxf(sdd - sd * sd / n, 0.f);     // and its M2 about that mean
+
+  // a warp a group: each lane merges the entries (thread row, channel) e ≡
+  // lane (mod 32) in order, then the lanes merge down a shuffle tree
+  const int lane = threadIdx.x & 31;
+  for (int g = threadIdx.x / 32; g < groups; g += kThreads / 32) {
+    float n = 0.f, mean = 0.f, m2 = 0.f;
+    for (int e = lane; e < tt.ty_n * cg; e += 32) {
+      const int t = e / cg, c = g * cg + e % cg;
+      chan_merge(n, mean, m2, (float)tt.visits(t, rows), smean[t * width + c], sm2[t * width + c]);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float nb = __shfl_down_sync(0xffffffffu, n, off);
+      const float mb = __shfl_down_sync(0xffffffffu, mean, off);
+      const float m2b = __shfl_down_sync(0xffffffffu, m2, off);
+      chan_merge(n, mean, m2, nb, mb, m2b);
+    }
+    if (lane == 0)
+      partial[((size_t)b * gridDim.x + chunk) * G + slab * groups + g] = make_float2(mean, m2);
   }
 }
 
+// Pass 2 of route "stream": the same grid; every block merges its slab's
+// partials in chunk order, then normalizes its rows, last first.
 template <typename T, bool SILU>
 __global__ void __launch_bounds__(kThreads)
-gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ scale,
-                const float* __restrict__ bias, const float* __restrict__ partial,
-                T* __restrict__ y, int N, int C, int G, int rows_per_chunk, float eps) {
+gn_stream_apply_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                       const float* __restrict__ bias, const float2* __restrict__ partial,
+                       T* __restrict__ y, int N, int C, int G, int cg, int width,
+                       int rows_per_chunk, float eps) {
   constexpr int VEC = Vec<T>::N;
-  __shared__ float gmean[kMaxGroups], grstd[kMaxGroups];
-  const int chunk = blockIdx.x, chunks = gridDim.x, b = blockIdx.y;
+  __shared__ float2 stat[kMaxGroups];  // (mean, rstd) of the slab's groups
+  const int chunk = blockIdx.x, chunks = gridDim.x, slab = blockIdx.y, b = blockIdx.z;
   const int r0 = chunk * rows_per_chunk;
   const int rows = min(rows_per_chunk, N - r0);
-  const int cg = C / G;
+  const int groups = width / cg;
 
-  const float* src = partial + (size_t)b * chunks * G * 2;
-  for (int g = threadIdx.x; g < G; g += kThreads) {
+  const float2* src = partial + (size_t)b * chunks * G + slab * groups;
+  for (int g = threadIdx.x; g < groups; g += kThreads) {
     float n = 0.f, mean = 0.f, m2 = 0.f;
 #pragma unroll 8  // the loads do not depend on the running merge: keep several in flight
-    for (int k = 0; k < chunks; ++k) {  // chunk order: the same sum in every block
-      const float nk = (float)(min(rows_per_chunk, N - k * rows_per_chunk) * cg);
-      const float mk = src[((size_t)k * G + g) * 2], m2k = src[((size_t)k * G + g) * 2 + 1];
-      const float tot = n + nk, delta = mk - mean;
-      mean += delta * (nk / tot);
-      m2 += m2k + delta * delta * (n * nk / tot);
-      n = tot;
+    for (int k = 0; k < chunks; ++k) {  // chunk order: the same sums in every block
+      const float2 pk = src[(size_t)k * G + g];
+      chan_merge(n, mean, m2, (float)(min(rows_per_chunk, N - k * rows_per_chunk) * cg), pk.x,
+                 pk.y);
     }
-    gmean[g] = mean;
-    grstd[g] = rsqrtf(m2 / n + eps);
+    stat[g] = make_float2(mean, rsqrtf(m2 / n + eps));
   }
   __syncthreads();
 
-  const ThreadTile tt(C / VEC);
-  if (!tt.active()) return;
-  const size_t base = ((size_t)b * N + r0) * C;
-  for (int j = tt.tx; j < C / VEC; j += tt.tx_n) {
+  const ThreadTile tt(width / VEC);
+  if (!tt.active() || tt.ty >= rows) return;
+  const size_t base = ((size_t)b * N + r0) * C + (size_t)slab * width;
+  const size_t step = (size_t)tt.ty_n * C;
+  const int last = tt.ty + (rows - 1 - tt.ty) / tt.ty_n * tt.ty_n;  // this thread's last row
+  for (int j = tt.tx; j < width / VEC; j += tt.tx_n) {
     float m[VEC], a[VEC], bb[VEC];
 #pragma unroll
     for (int i = 0; i < VEC; ++i) {
       const int c = j * VEC + i;
-      m[i] = gmean[c / cg];
-      a[i] = grstd[c / cg] * scale[c];
-      bb[i] = bias[c];
+      const float2 st = stat[c / cg];
+      m[i] = st.x;
+      a[i] = st.y * scale[slab * width + c];
+      bb[i] = bias[slab * width + c];
     }
-    for (int r = tt.ty; r < rows; r += tt.ty_n) {
+    const size_t off0 = base + (size_t)last * C + j * VEC;
+    const T* px = x + off0;
+    T* py = y + off0;
+    int r = last;
+    for (; r - (kStreamUnroll - 1) * tt.ty_n >= 0; r -= kStreamUnroll * tt.ty_n) {
+      // the loads in flight as raw 16-byte vectors, widened one at a time
+      // (widened all at once, bf16 with SiLU spills)
+      uint4 raw[kStreamUnroll];
+#pragma unroll
+      for (int u = 0; u < kStreamUnroll; ++u)
+        raw[u] = *reinterpret_cast<const uint4*>(px - u * step);
+#pragma unroll
+      for (int u = 0; u < kStreamUnroll; ++u) {
+        float v[VEC];
+        Vec<T>::unpack(raw[u], v);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          float o = fmaf(v[i] - m[i], a[i], bb[i]);
+          if (SILU) o = o / (1.f + expf(-o));
+          v[i] = o;
+        }
+        Vec<T>::store(py - u * step, v);
+      }
+      px -= kStreamUnroll * step;
+      py -= kStreamUnroll * step;
+    }
+    for (; r >= 0; r -= tt.ty_n) {
       float v[VEC];
-      Vec<T>::load(x + base + (size_t)r * C + j * VEC, v);
+      Vec<T>::load(px, v);
 #pragma unroll
       for (int i = 0; i < VEC; ++i) {
         float o = fmaf(v[i] - m[i], a[i], bb[i]);
         if (SILU) o = o / (1.f + expf(-o));
         v[i] = o;
       }
-      Vec<T>::store(y + base + (size_t)r * C + j * VEC, v);
+      Vec<T>::store(py, v);
+      px -= step;
+      py -= step;
     }
   }
 }
 
 template <typename T>
-cudaError_t launch(const void* x, const float* scale, const float* bias, float* partial, void* y,
-                   int B, int N, int C, int G, int rows_per_chunk, float eps, int with_silu,
-                   cudaStream_t s) {
-  const dim3 grid((N + rows_per_chunk - 1) / rows_per_chunk, B);
+cudaError_t launch_stream(const void* x, const float* scale, const float* bias, float2* partial,
+                          void* y, int B, int N, int C, int G, int slice_groups,
+                          int rows_per_chunk, float eps, int with_silu, cudaStream_t s) {
+  constexpr int VEC = Vec<T>::N;
+  const int cg = C / G, width = slice_groups * cg;
+  if (slice_groups < 1 || G % slice_groups || width % VEC || rows_per_chunk < 1)
+    return cudaErrorInvalidValue;
+  const dim3 grid((N + rows_per_chunk - 1) / rows_per_chunk, G / slice_groups, B);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
   const T* xt = static_cast<const T*>(x);
   T* yt = static_cast<T*>(y);
-  gn_stats_kernel<T><<<grid, kThreads, 0, s>>>(xt, partial, N, C, G, rows_per_chunk);
+  gn_stream_stats_kernel<T><<<grid, kThreads, 0, s>>>(xt, partial, N, C, G, cg, width,
+                                                       rows_per_chunk);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (with_silu)
-    gn_apply_kernel<T, true><<<grid, kThreads, 0, s>>>(xt, scale, bias, partial, yt, N, C, G,
-                                                       rows_per_chunk, eps);
+    gn_stream_apply_kernel<T, true><<<grid, kThreads, 0, s>>>(xt, scale, bias, partial, yt, N, C,
+                                                              G, cg, width, rows_per_chunk, eps);
   else
-    gn_apply_kernel<T, false><<<grid, kThreads, 0, s>>>(xt, scale, bias, partial, yt, N, C, G,
-                                                        rows_per_chunk, eps);
+    gn_stream_apply_kernel<T, false><<<grid, kThreads, 0, s>>>(xt, scale, bias, partial, yt, N, C,
+                                                               G, cg, width, rows_per_chunk, eps);
   return cudaGetLastError();
 }
 
@@ -534,25 +616,29 @@ cudaError_t launch_cluster(const void* x, const float* scale, const float* bias,
 
 }  // namespace
 
-// Route "two_pass". x, y (B, N, C) contiguous, 16-byte aligned, one dtype; scale,
-// bias (C,) fp32; partial: fp32 scratch of B·ceil(N / rows_per_chunk)·G·2 elements.
+// Route "stream". x, y (B, N, C) contiguous, 16-byte aligned, one dtype; scale,
+// bias (C,) fp32; partial: fp32 scratch of B·ceil(N / rows_per_chunk)·G·2
+// elements. A block owns rows_per_chunk rows of one (sample, slab of
+// `slice_groups` whole groups), the slab a multiple of 16 bytes.
 // C % G == 0, C % 8 == 0, C <= 4096, G <= 256, B <= 65535, rows_per_chunk >= 1.
 // Returns cudaGetLastError() after the launches (or the first failing call).
-extern "C" int udt_groupnorm_silu(const void* x, const void* scale, const void* bias,
-                                  void* partial, void* y, int B, int N, int C, int G,
-                                  int rows_per_chunk, float eps, int with_silu, int dtype,
-                                  void* stream) {
+extern "C" int udt_groupnorm_silu_stream(const void* x, const void* scale, const void* bias,
+                                         void* partial, void* y, int B, int N, int C, int G,
+                                         int slice_groups, int rows_per_chunk, float eps,
+                                         int with_silu, int dtype, void* stream) {
   if (B <= 0 || B > 65535 || N <= 0 || C <= 0 || G <= 0 || G > kMaxGroups || C % G != 0 ||
-      C % 8 != 0 || C > kMaxChannels || rows_per_chunk < 1)
+      C % 8 != 0 || C > kMaxChannels)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sc = static_cast<const float*>(scale);
   const float* bi = static_cast<const float*>(bias);
-  float* p = static_cast<float*>(partial);
+  float2* p = static_cast<float2*>(partial);
   if (dtype == udt::kBFloat16)
-    return launch<bf16>(x, sc, bi, p, y, B, N, C, G, rows_per_chunk, eps, with_silu, s);
+    return launch_stream<bf16>(x, sc, bi, p, y, B, N, C, G, slice_groups, rows_per_chunk, eps,
+                               with_silu, s);
   if (dtype == udt::kFloat32)
-    return launch<float>(x, sc, bi, p, y, B, N, C, G, rows_per_chunk, eps, with_silu, s);
+    return launch_stream<float>(x, sc, bi, p, y, B, N, C, G, slice_groups, rows_per_chunk, eps,
+                                with_silu, s);
   return cudaErrorInvalidValue;
 }
 

@@ -22,6 +22,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.groupnorm import kernel_takes, launch
+from ..utils.profiling import count
+
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: int = 10000) -> torch.Tensor:
     """Sinusoidal timestep embedding, cos first, fp32."""
@@ -39,16 +42,28 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: int = 1000
 
 class GroupNorm32(nn.Module):
     """GroupNorm with fp32 centered two-pass statistics on NHWC input; the
-    affine runs in fp32 and the output is in the input dtype."""
+    affine runs in fp32 and the output is in the input dtype. `silu=True`
+    adds the SiLU that follows it in the models.
 
-    def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-5):
+    Where autograd would not record the call and the kernel takes x
+    (`ops.groupnorm.kernel_takes`: a CUDA tensor of its dtypes and shapes,
+    contiguous and 16-byte aligned), the norm and the SiLU run as one launch
+    of the kernel of `ops.groupnorm.fused_groupnorm_silu` (SiLU on the fp32
+    value, one rounding); otherwise, and always with `impl="plain"`, on `plain`, the
+    eager version, followed by `F.silu`. Each call adds one to the counter
+    `groupnorm.kernel` or `groupnorm.plain` (`utils.profiling.RECORDER`)."""
+
+    def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-5,
+                 impl: str = "auto"):
         super().__init__()
         self.num_groups = num_groups
         self.eps = eps
+        self.impl = impl  # "auto" | "plain"
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def plain(self, x: torch.Tensor, silu: bool = False) -> torch.Tensor:
+        """The eager version (on every device, differentiable), then `F.silu`."""
         c = x.shape[-1]
         g = self.num_groups
         xf = x.reshape(x.shape[0], -1, g, c // g).float()
@@ -56,7 +71,25 @@ class GroupNorm32(nn.Module):
         xc = xf - mean
         var = xc.square().mean(dim=(1, 3), keepdim=True)
         y = (xc * torch.rsqrt(var + self.eps)).reshape(x.shape)
-        return (y * self.weight.float() + self.bias.float()).to(x.dtype)
+        y = (y * self.weight.float() + self.bias.float()).to(x.dtype)
+        return F.silu(y) if silu else y
+
+    def forward(self, x: torch.Tensor, silu: bool = False) -> torch.Tensor:
+        if self.impl != "plain" and kernel_takes(x, self.weight, self.bias, self.num_groups):
+            count("groupnorm.kernel")
+            return launch(x, self.weight, self.bias, self.num_groups, self.eps, silu)
+        count("groupnorm.plain")
+        return self.plain(x, silu)
+
+
+def set_norm_impl(module: nn.Module, attn_impl: str) -> nn.Module:
+    """Every `GroupNorm32` of `module` on the plain path when `attn_impl` is
+    "plain" (the implementation switch: no hand-written kernel anywhere),
+    else on the kernel where it takes the call."""
+    for m in module.modules():
+        if isinstance(m, GroupNorm32):
+            m.impl = "plain" if attn_impl == "plain" else "auto"
+    return module
 
 
 class LayerNormF32(nn.LayerNorm):

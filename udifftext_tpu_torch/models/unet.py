@@ -110,13 +110,13 @@ class ResBlock(nn.Module):
         self.skip_connection = Conv1x1(in_ch, out_ch) if in_ch != out_ch else None
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
-        h = self.in_layers[2](F.silu(self.in_layers[0](x)))
+        h = self.in_layers[2](self.in_layers[0](x, silu=True))
         emb_out = self.emb_layers[1](F.silu(emb))[:, None, None, :].to(h.dtype)
         if self.use_scale_shift_norm:
             scale, shift = emb_out.chunk(2, dim=-1)
             h = F.silu(self.out_layers[0](h) * (1 + scale) + shift)
         else:
-            h = F.silu(self.out_layers[0](h + emb_out))
+            h = self.out_layers[0](h + emb_out, silu=True)
         h = self.out_layers[3](h)
         if self.skip_connection is not None:
             x = self.skip_connection(x)
@@ -342,7 +342,7 @@ class UNetModel(nn.Module):
             h = torch.cat([h, hs.pop()], dim=-1)
             h = self._apply_block(prefix, mods, specs, h, emb, t_context, v_context,
                                   capture_attn, attn_maps, ctx_kv)
-        h = self.out[2](F.silu(self.out[0](h)))
+        h = self.out[2](self.out[0](h, silu=True))
         return h.float()
 
     def forward(

@@ -58,8 +58,8 @@ class VAEResnetBlock(nn.Module):
         self.nin_shortcut = Conv1x1(in_ch, out_ch) if in_ch != out_ch else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(F.silu(self.norm1(x)))
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv1(self.norm1(x, silu=True))
+        h = self.conv2(self.norm2(h, silu=True))
         if self.nin_shortcut is not None:
             x = self.nin_shortcut(x)
         return x + h
@@ -180,7 +180,7 @@ class Encoder(nn.Module):
         for level in self.down:
             h = level(h)
         h = self.mid(h)
-        return self.conv_out(F.silu(self.norm_out(h)))
+        return self.conv_out(self.norm_out(h, silu=True))
 
 
 class Decoder(nn.Module):
@@ -212,7 +212,7 @@ class Decoder(nn.Module):
         h = self.mid(self.conv_in(z))
         for level in reversed(self.up):
             h = level(h)
-        return self.conv_out(F.silu(self.norm_out(h)))
+        return self.conv_out(self.norm_out(h, silu=True))
 
 
 class AutoencoderKL(nn.Module):

@@ -15,7 +15,7 @@ from torch import nn
 from torch.utils._pytree import tree_leaves
 
 from ..builders import TEXTDESIGN_SD_2, EngineBundle, build_engine, randomize_parameters
-from ..models.layers import cast_weights
+from ..models.layers import cast_weights, set_norm_impl
 from ..utils.profiling import flops_of
 from ._timing import nbytes
 
@@ -44,10 +44,11 @@ def seeded(build: Callable[[], nn.Module], device: torch.device, seed: int,
 
 def plain_twin(module: nn.Module, build_plain: Callable[[], nn.Module]) -> nn.Module:
     """The module `build_plain()` makes (the same one with attn_impl or impl
-    "plain"), holding `module`'s own parameters and buffers: built on the
+    "plain"; its GroupNorms on their plain path too), holding `module`'s own parameters and buffers: built on the
     meta device, then given them without a copy."""
     with torch.device("meta"):
         twin = build_plain()
+    set_norm_impl(twin, "plain")
     twin.load_state_dict(module.state_dict(keep_vars=True), assign=True)
     for name, buf in module.named_buffers():  # the non-persistent ones too
         owner, _, attr = name.rpartition(".")

@@ -13,7 +13,7 @@ and a batch of B UNet rows (a CFG batch):
     N = 256 included, which `flash_shape_ok` would send to the plain path),
     the plain path (`plain_sdpa`), and `F.scaled_dot_product_attention`,
     the library yardstick, which the port calls nowhere
-  GroupNorm32 + SiLU at 64² × 320 (the UNet's eager glue)
+  GroupNorm32 + SiLU at 64² × 320 (the eager glue, `GroupNorm32.plain`)
 
 Each row has its operations and the H100 bound: the UNet's and the VAE's
 from `utils.profiling.flops_of` on the engine's plain twin (attn_impl
@@ -98,8 +98,8 @@ def run(batch: int = 16, reps: int = 20, runs: int = 3, device: str = "cuda",
     gn = GroupNorm32(bundle.engine.unet.model_channels).to(dev)
     h = torch.randn(batch, side, side, bundle.engine.unet.model_channels, generator=gen,
                     device=dev).to(dtype)
-    rows.time("GroupNorm32 + SiLU", lambda: F.silu(gn(h)), (10.0 * h.numel(), nbytes(h, h)),
-              dtype)
+    rows.time("GroupNorm32 + SiLU", lambda: gn.plain(h, silu=True),
+              (10.0 * h.numel(), nbytes(h, h)), dtype)
     return rows.results
 
 

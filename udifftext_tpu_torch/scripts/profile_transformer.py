@@ -14,7 +14,7 @@ weights) it times:
     LayerNormF32 alone
   the t_attn residual (LayerNorm, cross-attention with inline K/V, residual)
   the GEGLU feed-forward residual (LayerNorm, C → 8C, gate, 4C → C)
-  GroupNorm32 alone
+  GroupNorm32 alone (the eager op, `impl="plain"`)
 
 Each row carries its operations (`utils.profiling.flops_of` on the plain
 twin of each block: attn_impl / impl "plain" on the same weights), its H100
@@ -75,7 +75,7 @@ def run(batch: int = 16, reps: int = 20, runs: int = 3, device: str = "cuda",
             "ln": lambda: LayerNormF32(c),
             "ca": lambda: CrossAttention(c, ctx_dim, heads, d),
             "ff": lambda: GEGLUFeedForward(c, impl="plain" if impl == "plain" else "auto"),
-            "gn": lambda: GroupNorm32(c, eps=1e-6),
+            "gn": lambda: GroupNorm32(c, eps=1e-6, impl="plain"),  # the eager op, timed
         }
 
     mods = {k: seeded(f, dev, SEED + i, dtype)

@@ -5,8 +5,9 @@
 Times, at the ds1 shape of the shipped graph (CFG-doubled batch 32, 64×64,
 320 channels, bf16), how much of a ResBlock is its two 3×3 convolutions and
 how much the GroupNorm+SiLU glue around them, with the glue eager (the port's
-`GroupNorm32` then `F.silu`, what the UNet runs) and as the one fused kernel
-`ops.groupnorm.fused_groupnorm_silu`:
+`GroupNorm32.plain` then `F.silu`, what the UNet runs under autograd) and as
+the one fused kernel `ops.groupnorm.fused_groupnorm_silu` (what `GroupNorm32`
+runs on the card without autograd):
 
   2x conv3x3 only
   ResBlock: GN+SiLU → conv → +emb → GN+SiLU → conv → +x, eager glue
@@ -70,7 +71,7 @@ def run(batch: int = 32, channels: int = 320, hw: int = 64, reps: int = 20, runs
         return F.conv2d(h.permute(0, 3, 1, 2), w, None, 1, 1).permute(0, 2, 3, 1)
 
     def glue_eager(h: torch.Tensor) -> torch.Tensor:
-        return F.silu(gn(h))
+        return gn.plain(h, silu=True)  # the eager path, whatever GroupNorm32's gate would pick
 
     def glue_fused(h: torch.Tensor) -> torch.Tensor:
         # the wrapper raises unless h is channels-last contiguous, so no hidden copy is timed
