@@ -6,11 +6,11 @@ own size, in one process:
 
 For each seed, one run of the cell with a short window (the program's
 numbers, as every run reads them); for the first `--controls` seeds also
-each control of CONTROLS, the reference at a lower arithmetic put in the
-program's place; for the first `--faults` seeds also the faults planted in
-the program that the cell can have (a served image altered where it is
-produced; a fine-tuning step that leaves its state unchanged; half of each
-micro-batch left out, the mean taken over the rest). One JSON line a
+each control of `controls(cfg)`, the reference at a lower arithmetic put
+in the program's place; for the first `--faults` seeds also the faults
+planted in the program that the cell can have (a served image altered where
+it is produced; a fine-tuning step that leaves its state unchanged; half of
+each micro-batch left out, the mean taken over the rest). One JSON line a
 reading: its numbers and the verdict of the cell's own limits on them.
 """
 
@@ -23,15 +23,16 @@ from pathlib import Path
 
 import torch
 
-from .reference.model import FP32, BFloat16, Float8
 
-# name: (the UNet's arithmetic, the autoencoder's and LabelEncoder's).
-# "control" is the contract's: every product one step below what the
-# configurations state (float8 for the bf16 UNet; bfloat16 for the frozen
-# networks' float32, whose convolutions run in TF32). "frozen_bf16" lowers
-# the frozen networks alone, under an exact UNet: the reading of a program
-# that would serve them in bf16, less the UNet's own rounding.
-CONTROLS = {"control": (Float8(), BFloat16()), "frozen_bf16": (FP32, BFloat16())}
+def controls(cfg: dict) -> dict:
+    """name: (the UNet's arithmetic, the autoencoder's and LabelEncoder's),
+    in the precisions of the configuration's reference. "control" is the
+    contract's: every product one step below what the configurations state
+    (float8 for the bf16 UNet; bfloat16 for the frozen networks' float32,
+    whose convolutions run in TF32)."""
+    from .modules import reference
+    ref = reference(cfg)
+    return {"control": (ref.Float8(), ref.BFloat16())}
 
 
 @contextlib.contextmanager
@@ -95,7 +96,7 @@ def main(argv=None) -> None:
 
     for i, seed in enumerate(args.seeds):
         out = DRIVERS[mode](cell, seed, args.seconds, False, device,
-                            CONTROLS if i < args.controls else None)
+                            controls(cell.config) if i < args.controls else None)
         emit("program", seed, out["numbers"])
         for name, numbers in out["controls"].items():
             emit(name, seed, numbers)

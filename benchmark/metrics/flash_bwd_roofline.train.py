@@ -4,7 +4,7 @@ takes (N >= 512, N a multiple of 128, head size 64 or 128) after the first
 trainable t_attn (before it nothing needs a gradient), on every
 micro-batch, over the device time of the kernels named flash_bwd."""
 
-from benchmark import flops
+from benchmark.modules import counts
 
 PATTERNS = ("flash_bwd",)
 
@@ -16,6 +16,7 @@ def read(r):
     if seconds <= 0:
         return None
     cfg, mix = r.cell.config, r.cell.traffic
+    flops = counts(cfg)
     net = cfg["graph"]["network_config"]["params"]
     lat = cfg["image_size"] // 8
     calls = r.traced_units * mix["accumulate"]

@@ -4,7 +4,7 @@ takes (N >= 512, N and the keys a multiple of 128, head size 64 or 128), on
 the CFG-doubled rows of every UNet eval, over the device time of the
 kernels named flash_fwd."""
 
-from benchmark import flops
+from benchmark.modules import counts
 
 PATTERNS = ("flash_fwd",)
 
@@ -16,6 +16,7 @@ def read(r):
     if seconds <= 0:
         return None
     cfg = r.cell.config
+    flops = counts(cfg)
     net = cfg["graph"]["network_config"]["params"]
     lat = cfg["image_size"] // 8
     rows = 2 * max(cfg["serving"]["buckets"])

@@ -3,7 +3,7 @@ groups: the least time of the feed-forwards that take the kernel (tokens a
 multiple of 128), on the CFG-doubled rows of every UNet eval, over the
 device time of the kernels named geglu."""
 
-from benchmark import flops
+from benchmark.modules import counts
 
 PATTERNS = ("geglu",)
 
@@ -15,6 +15,7 @@ def read(r):
     if seconds <= 0:
         return None
     cfg = r.cell.config
+    flops = counts(cfg)
     net = cfg["graph"]["network_config"]["params"]
     lat = cfg["image_size"] // 8
     rows = 2 * max(cfg["serving"]["buckets"])

@@ -11,7 +11,9 @@ picks the driver: "serve" drives `serving.InpaintService` as the serve CLI
 builds it, "train" drives `parallel.train.train_step` as the train CLI runs
 it. Weights and inputs come from the seed; the set-up warms every shape the
 window uses, the window runs for --seconds, and the program's outputs are
-then held to the plain reference (benchmark/reference, benchmark/judge.py).
+then held to the plain reference (benchmark/judge.py). The reference and the
+count of operations are the modules the configuration names
+(benchmark/modules.py; by default benchmark/reference and benchmark/flops).
 
 With --trace 0 the metrics are the cell's end-to-end ones; with --trace 1
 its per-layer ones, read from counters, the window, and a torch.profiler
@@ -150,17 +152,18 @@ def group_draws(seed: int, key: int, b: int, latent: int, iters: int, device):
 
 def reference_networks(cfg: dict):
     import torch
-    from .reference.engine import NUM_CLASSES
-    from .reference.model import Networks
+    from .modules import reference
+    ref = reference(cfg)
     with torch.device("meta"):
-        return Networks(cfg["graph"], NUM_CLASSES)
+        return ref.Networks(cfg["graph"], ref.NUM_CLASSES)
 
 
 def seeded_weights(cfg: dict, seed: int, device, train: bool):
     import torch
+    from .modules import reference
     from .weights import iter_weights
     return iter_weights(reference_networks(cfg), seed, device, cfg["graph"],
-                        getattr(torch, cfg["unet_dtype"]), train)
+                        getattr(torch, cfg["unet_dtype"]), train, reference(cfg))
 
 
 def load_program_weights(engine, cfg: dict, seed: int, device, train: bool) -> None:
@@ -202,10 +205,11 @@ def serve_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     from udifftext_tpu_torch.predict import Predictor
     from udifftext_tpu_torch.serving import InpaintRequest, InpaintService
 
-    from . import flops, traffic
+    from . import modules, traffic
     from .weights import sub_seed
 
     cfg, mix = cell.config, cell.traffic
+    flops = modules.counts(cfg)
     size, seq, smp, srv = cfg["image_size"], cfg["seq_len"], cfg["sampler"], cfg["serving"]
     bundle = build_engine(cfg["graph"], getattr(torch, cfg["unet_dtype"]), device)
     load_program_weights(bundle.engine, cfg, seed, device, train=False)
@@ -228,7 +232,7 @@ def serve_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     service = InpaintService(run, max_batch=srv["max_batch"], max_delay_ms=srv["max_delay_ms"],
                              size=size, seq_len=seq, batch_buckets=srv["buckets"],
                              pipeline_depth=srv["pipeline"])
-    pool = traffic.requests(mix, seed, size)
+    pool = traffic.requests(mix, seed, size, modules.reference(cfg).CHARSET)
     service.warmup()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -367,12 +371,13 @@ def serve_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
             "controls": numbers, "reference_s": time.perf_counter() - t_ref}
 
 
-def serve_batch(reqs, bucket: int, seq: int, device):
+def serve_batch(cfg: dict, reqs, bucket: int, device):
     """A group's uint8 batch as the service pads it (the last request
     repeated), on `device`, for the reference."""
     import numpy as np
     import torch
-    from .reference.engine import encode_text
+    from .modules import reference
+    encode_text, seq = reference(cfg).encode_text, cfg["seq_len"]
     reqs = list(reqs) + [reqs[-1]] * (bucket - len(reqs))
     seg_mask = np.zeros((bucket, seq), np.float32)
     for i, r in enumerate(reqs):
@@ -392,11 +397,12 @@ def serve_reference(cfg: dict, seed: int, check: dict, device,
     candidate). The reference follows the candidate each side chose."""
     import torch
     from .judge import serve_numbers
-    from .reference.engine import Reference, fp32_products
+    from .modules import reference
+    ref_mod = reference(cfg)
     smp = cfg["sampler"]
     outs = {"program": (check["choice"], check["images"])}
-    with fp32_products():
-        batch = serve_batch(check["reqs"], check["bucket"], cfg["seq_len"], device)
+    with ref_mod.fp32_products():
+        batch = serve_batch(cfg, check["reqs"], check["bucket"], device)
         post, noise = group_draws(seed, check["key"], check["bucket"], check["latent"],
                                   smp["noise_iters"], device)
         idx = torch.as_tensor(check["checked"], device=device)
@@ -407,12 +413,13 @@ def serve_reference(cfg: dict, seed: int, check: dict, device,
                                    smp["cfg_scale"])
 
         for name, (prec, frozen) in (controls or {}).items():
-            ctrl = Reference(cfg, device, seeded_weights(cfg, seed, device, train=False), prec, frozen)
+            ctrl = ref_mod.Reference(cfg, device, seeded_weights(cfg, seed, device, train=False),
+                                     prec, frozen)
             choice = int(torch.argmin(ctrl.search_scores(batch, post, noise, smp["cfg_scale"])))
             outs[name] = (choice, sample(ctrl, choice))
             del ctrl
             free_device()
-        ref = Reference(cfg, device, seeded_weights(cfg, seed, device, train=False))
+        ref = ref_mod.Reference(cfg, device, seeded_weights(cfg, seed, device, train=False))
         ref_images = {c: sample(ref, c) for c in {c for c, _ in outs.values()}}
     del ref
     free_device()
@@ -423,9 +430,11 @@ def serve_reference(cfg: dict, seed: int, check: dict, device,
 
 def train_rows(cell: Cell, seed: int, step: int, device) -> List[dict]:
     """The rows of a step's micro-batches, on `device`."""
-    from . import traffic
-    size = cell.config["image_size"]
-    return [traffic.train_rows(cell.traffic, seed, step, j, size, cell.config["seq_len"], device)
+    from . import modules, traffic
+    cfg = cell.config
+    charset = modules.reference(cfg).CHARSET
+    return [traffic.train_rows(cell.traffic, seed, step, j, cfg["image_size"], cfg["seq_len"],
+                               charset, device)
             for j in range(cell.traffic["accumulate"])]
 
 
@@ -453,9 +462,10 @@ def train_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     from udifftext_tpu_torch.parallel.train import TrainState, train_step
     from udifftext_tpu_torch.train import batch_keys, to_device
 
-    from . import flops
+    from . import modules
 
     cfg, mix = cell.config, cell.traffic
+    flops = modules.counts(cfg)
     tr = cfg["training"]
     bundle = build_engine(cfg["graph"], getattr(torch, cfg["unet_dtype"]), device, train=True)
     engine = bundle.engine
@@ -535,20 +545,22 @@ def train_reference(cell: Cell, seed: int, prog: Optional[dict], device,
     program's `prog` ("program", when given) and of each of `controls`, the
     reference at that arithmetic put in the program's place."""
     from .judge import train_numbers
-    from .reference.engine import Reference, fp32_products, train_steps
+    from .modules import reference
+    ref_mod = reference(cell.config)
     cfg = cell.config
     keys = cfg["graph"].get("opt_keys", ("t_attn", "t_norm"))
     lr = cfg["training"]["base_learning_rate"]
     feeds = [train_feed(cell, seed, s, device) for s in range(cell.traffic["checked_steps"])]
     outs = {} if prog is None else {"program": prog}
-    with fp32_products():
+    with ref_mod.fp32_products():
         for name, (prec, frozen) in (controls or {}).items():
-            ctrl = Reference(cfg, device, seeded_weights(cfg, seed, device, train=True), prec, frozen)
-            outs[name] = train_steps(ctrl, feeds, keys, lr)
+            ctrl = ref_mod.Reference(cfg, device, seeded_weights(cfg, seed, device, train=True),
+                                     prec, frozen)
+            outs[name] = ref_mod.train_steps(ctrl, feeds, keys, lr)
             del ctrl
             free_device()
-        ref = Reference(cfg, device, seeded_weights(cfg, seed, device, train=True))
-        out = train_steps(ref, feeds, keys, lr)
+        ref = ref_mod.Reference(cfg, device, seeded_weights(cfg, seed, device, train=True))
+        out = ref_mod.train_steps(ref, feeds, keys, lr)
     del ref, feeds
     free_device()
     return {name: train_numbers(o, out) for name, o in outs.items()}

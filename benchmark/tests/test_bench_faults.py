@@ -13,7 +13,7 @@ from __future__ import annotations
 import pytest
 import torch
 
-from benchmark.calibrate import CONTROLS, FAULTS, planted
+from benchmark.calibrate import FAULTS, controls, planted
 from benchmark.judge import verdict
 from benchmark.run import DRIVERS
 from benchmark.tests.tiny import TINY_SECONDS, tiny_cell
@@ -43,7 +43,7 @@ def test_the_control_is_not_correct(workload):
     torch.set_num_threads(2)
     cell = tiny_cell(workload)
     out = DRIVERS[cell.config["mode"]](cell, SEED, TINY_SECONDS, False, CPU,
-                                       {"control": CONTROLS["control"]})
+                                       {"control": controls(cell.config)["control"]})
     numbers = out["controls"]["control"]
     correct, _ = verdict(numbers, cell.config["limits"])
     assert not correct, numbers

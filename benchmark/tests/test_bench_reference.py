@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from benchmark.judge import train_numbers
-from benchmark.reference.engine import Reference, train_steps
+from benchmark.reference.engine import CHARSET, Reference, train_steps
 from benchmark.run import (group_draws, load_program_weights, seeded_weights, serve_batch,
                            train_feed)
 from benchmark.tests.tiny import tiny_cell
@@ -64,7 +64,7 @@ def test_served_group_agrees():
     from udifftext_tpu_torch.serving import InpaintRequest, InpaintService
     cell, cfg, engine, ref = _pair("serve-saturated")
     smp = cfg["sampler"]
-    reqs = traffic.requests(cell.traffic, SEED, cfg["image_size"])[:2]
+    reqs = traffic.requests(cell.traffic, SEED, cfg["image_size"], CHARSET)[:2]
     service = InpaintService(lambda b, k: None, max_batch=2, size=32, seq_len=12)
     rows = [service.build_row(InpaintRequest(r.image, r.mask, r.text)) for r in reqs]
     service.shutdown()
@@ -73,7 +73,7 @@ def test_served_group_agrees():
     pred = Predictor(engine, num_steps=smp["num_steps"], cfg_scale=smp["cfg_scale"],
                      noise_iters=smp["noise_iters"])
     images, aux = pred(arr, posterior_eps=post, noise=noise)
-    batch = serve_batch(reqs, 2, 12, CPU)
+    batch = serve_batch(cfg, reqs, 2, CPU)
     for k in ("image", "label_ids", "seg_mask"):
         assert np.array_equal(np.asarray(arr[k]), batch[k].numpy().astype(np.asarray(arr[k]).dtype))
     r_scores = ref.search_scores(batch, post, noise, smp["cfg_scale"])

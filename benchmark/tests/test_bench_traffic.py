@@ -9,6 +9,7 @@ import numpy as np
 import torch
 
 from benchmark import traffic
+from benchmark.reference.engine import CHARSET
 from benchmark.run import load_cell
 from benchmark.tests.tiny import ROOT
 
@@ -17,7 +18,7 @@ SEEDS = (2**31 + 7, 5)
 
 def _reqs(seed):
     mix = load_cell(ROOT, "serve-saturated").traffic
-    return traffic.requests(dict(mix, pool=6), seed, 64)
+    return traffic.requests(dict(mix, pool=6), seed, 64, CHARSET)
 
 
 def test_requests_follow_the_seed():
@@ -52,7 +53,7 @@ def test_bursts_keep_the_rate():
 
 def _micro_batch(mix, seed, step, index):
     cpu = torch.device("cpu")
-    return dict(traffic.train_rows(mix, seed, step, index, 64, 12, cpu),
+    return dict(traffic.train_rows(mix, seed, step, index, 64, 12, CHARSET, cpu),
                 **traffic.loss_draws(mix, seed, step, index, 8, 0.1, 1000, cpu))
 
 

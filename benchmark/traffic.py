@@ -17,7 +17,8 @@ Kinds of mix:
   later steps take those rows again in turn, with draws of their own.
 Served requests come from a pool of `pool` distinct requests, drawn from the
 seed: a uint8 image, a text box of seeded size and place, and a text of
-`min_chars` to `max_chars` characters of the LabelEncoder's vocabulary.
+`min_chars` to `max_chars` characters of the LabelEncoder's vocabulary
+(`charset`, the configuration's reference's `CHARSET`).
 """
 
 from __future__ import annotations
@@ -29,7 +30,6 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from .reference.engine import CHARSET
 from .weights import sub_seed
 
 
@@ -40,7 +40,7 @@ class Request:
     text: str
 
 
-def requests(mix: dict, seed: int, size: int) -> List[Request]:
+def requests(mix: dict, seed: int, size: int, charset: str) -> List[Request]:
     """The mix's pool of distinct requests."""
     rng = np.random.default_rng(sub_seed(seed, "requests"))
     out = []
@@ -54,7 +54,7 @@ def requests(mix: dict, seed: int, size: int) -> List[Request]:
         y0, x0 = int(rng.integers(0, size - h + 1)), int(rng.integers(0, size - w + 1))
         mask = np.zeros((size, size), np.uint8)
         mask[y0:y0 + h, x0:x0 + w] = 255
-        text = "".join(CHARSET[i] for i in rng.integers(0, len(CHARSET), n))
+        text = "".join(charset[i] for i in rng.integers(0, len(charset), n))
         out.append(Request(image, mask, text))
     return out
 
@@ -74,7 +74,7 @@ def arrival_gaps(mix: dict, seconds: float) -> np.ndarray:
 
 
 def train_rows(mix: dict, seed: int, step: int, index: int, size: int, seq_len: int,
-               device: torch.device) -> Dict[str, torch.Tensor]:
+               charset: str, device: torch.device) -> Dict[str, torch.Tensor]:
     """One fine-tuning micro-batch's rows, made on `device` from the seed:
     a smooth image in [-1, 1] (NHWC), a text box as mask (1 inside) and
     masked image, one segmentation channel per character (a column of the
@@ -101,7 +101,7 @@ def train_rows(mix: dict, seed: int, step: int, index: int, size: int, seq_len: 
     seg = (rows[:, :, None, None] & in_char[:, None]).float()  # (b, H, W, L)
     mask = seg.amax(dim=-1, keepdim=True)
     seg_mask = (chars[None] < n[:, None]).float()
-    label_ids = torch.randint(1, len(CHARSET) + 1, (b, seq_len), generator=g,
+    label_ids = torch.randint(1, len(charset) + 1, (b, seq_len), generator=g,
                               device=device) * seg_mask.long()
     return {"image": image, "masked": image * (1.0 - mask), "mask": mask, "seg": seg,
             "seg_mask": seg_mask, "label_ids": label_ids}

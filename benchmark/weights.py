@@ -11,12 +11,11 @@ in (`served_dtype`), and the reference reads those same rounded values.
 from __future__ import annotations
 
 import hashlib
+from types import ModuleType
 from typing import Iterator, List, Tuple
 
 import torch
 from torch import nn
-
-from .reference.model import is_embedding, is_norm_param
 
 CHUNK = 1 << 27  # elements drawn per call
 
@@ -43,11 +42,13 @@ def served_dtype(name: str, graph: dict, unet_dtype: torch.dtype, train: bool,
 
 
 def iter_weights(model: nn.Module, seed: int, device: torch.device, graph: dict,
-                 unet_dtype: torch.dtype, train: bool) -> Iterator[Tuple[str, torch.Tensor]]:
+                 unet_dtype: torch.dtype, train: bool,
+                 ref: ModuleType) -> Iterator[Tuple[str, torch.Tensor]]:
     """(name, tensor on `device`) for every parameter of the reference `model`
-    (which may live on the meta device), in its order. Parameters are drawn
-    in groups of up to CHUNK elements, one call a group, so that no more
-    than a group's draw is held at a time."""
+    (which may live on the meta device), in its order; `ref`, the reference
+    package that defines it, tells its norms and embeddings. Parameters are
+    drawn in groups of up to CHUNK elements, one call a group, so that no
+    more than a group's draw is held at a time."""
     gen = torch.Generator(device).manual_seed(sub_seed(seed, "weights"))
     params = list(model.named_parameters())
     group: List[Tuple[str, nn.Parameter]] = []
@@ -62,15 +63,15 @@ def iter_weights(model: nn.Module, seed: int, device: torch.device, graph: dict,
         for gname, gp in group:
             r = flat[at:at + gp.numel()].view(gp.shape)
             at += gp.numel()
-            yield gname, _scale(model, gname, r).to(
-                served_dtype(gname, graph, unet_dtype, train, is_norm_param(model, gname)))
+            yield gname, _scale(model, gname, r, ref).to(
+                served_dtype(gname, graph, unet_dtype, train, ref.is_norm_param(model, gname)))
         group, size = ([(name, p)], p.numel()) if p is not None else ([], 0)
 
 
-def _scale(model: nn.Module, name: str, r: torch.Tensor) -> torch.Tensor:
-    if is_embedding(model, name):
+def _scale(model: nn.Module, name: str, r: torch.Tensor, ref: ModuleType) -> torch.Tensor:
+    if ref.is_embedding(model, name):
         return r
-    if is_norm_param(model, name):
+    if ref.is_norm_param(model, name):
         return 1.0 + 0.1 * r if name.endswith("weight") else 0.1 * r
     if name.endswith("bias"):
         return 0.02 * r
